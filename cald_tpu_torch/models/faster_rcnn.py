@@ -1,0 +1,138 @@
+"""Faster R-CNN inference, assembled (port of ``cald_tpu/models/faster_rcnn.py``).
+
+Images arrive as fixed-canvas padded NHWC batches of raw 0..255 pixels with
+their valid (h, w); ``detect`` returns exactly ``detections_per_img`` slots per
+image with the CALD extras. Inside the backbone tensors are NCHW in
+``torch.channels_last`` format; the pyramid handed to RoIAlign is NHWC.
+RoIAlign goes through ``ops.roi_align_cuda.roi_align_kernel``: the Hopper
+kernel for CUDA tensors, its plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from cald_tpu_torch.models.anchors import ASPECT_RATIOS, FRCNN_SIZES, generate_anchors
+from cald_tpu_torch.models.detections import Detections
+from cald_tpu_torch.models.fpn import FPN
+from cald_tpu_torch.models.resnet import ResNetBackbone
+from cald_tpu_torch.models.roi_heads import (
+    FastRCNNPredictor, TwoMLPHead, postprocess_detections,
+)
+from cald_tpu_torch.models.rpn import RPNHead, select_proposals
+from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel
+
+# torchvision GeneralizedRCNNTransform defaults
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+
+BACKBONES = {"resnet50": ((3, 4, 6, 3), 64), "tiny": ((1, 1, 1, 1), 16)}
+
+
+@dataclasses.dataclass(frozen=True)
+class FasterRCNNConfig:
+    """Inference configuration (the JAX package's defaults)."""
+
+    num_classes: int = 21
+    backbone: str = "resnet50"          # resnet50 | tiny
+    # conv/matmul compute dtype; box decoding, NMS and scores stay float32
+    compute_dtype: str = "bfloat16"
+    fpn_channels: int = 256
+    anchor_sizes: tuple = FRCNN_SIZES
+    aspect_ratios: tuple = ASPECT_RATIOS
+    rpn_pre_nms_top_n_test: int = 1000
+    rpn_post_nms_top_n_test: int = 1000
+    rpn_nms_thresh: float = 0.7
+    box_score_thresh: float = 0.05
+    box_nms_thresh: float = 0.5
+    detections_per_img: int = 100
+    representation_size: int = 1024
+
+    strides = (4, 8, 16, 32, 64)
+
+    @property
+    def roi_levels(self) -> int:
+        """Pyramid levels RoIAlign uses: all but the RPN-only P6."""
+        return len(self.strides) - 1
+
+
+def _valid_mask(h: int, w: int, valid_hw: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, H, W, 1) indicator of the valid (non-padding) canvas region."""
+    rows = torch.arange(h, device=valid_hw.device)[None, :] < valid_hw[:, 0:1]
+    cols = torch.arange(w, device=valid_hw.device)[None, :] < valid_hw[:, 1:2]
+    return (rows[:, :, None] & cols[:, None, :]).to(dtype)[..., None]
+
+
+class FasterRCNN(nn.Module):
+    def __init__(self, cfg: FasterRCNNConfig):
+        super().__init__()
+        if cfg.backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {cfg.backbone!r}")
+        self.cfg = cfg
+        dt = None if cfg.compute_dtype == "float32" else getattr(torch, cfg.compute_dtype)
+        self.dtype = dt
+        blocks, width = BACKBONES[cfg.backbone]
+        self.backbone = ResNetBackbone(blocks, width, dtype=dt)
+        self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, dtype=dt)
+        a_per_cell = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
+        self.rpn_head = RPNHead(a_per_cell, cfg.fpn_channels, dtype=dt)
+        pooled = 7 * 7 * cfg.fpn_channels
+        self.box_head = TwoMLPHead(pooled, cfg.representation_size, dtype=dt)
+        self.box_predictor = FastRCNNPredictor(cfg.representation_size, cfg.num_classes,
+                                               dtype=dt)
+        self.roi_align = roi_align_kernel
+        self._anchor_cache: dict = {}
+
+    def features(self, images: torch.Tensor, valid_hw: torch.Tensor) -> list[torch.Tensor]:
+        """FPN pyramid, NCHW channels-last tensors, finest first (P2..P6)."""
+        mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
+        std = torch.as_tensor(IMAGENET_STD, device=images.device)
+        x = (images / 255.0 - mean) / std
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        # zero the canvas padding in NORMALIZED space, as the reference
+        # normalizes each image first and zero-pads the batch after
+        x = x * _valid_mask(images.shape[1], images.shape[2], valid_hw, x.dtype)
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        feats = self.backbone(x)
+        return self.fpn([feats[k] for k in ("c2", "c3", "c4", "c5")])
+
+    def _anchors(self, pyramid, device):
+        cfg = self.cfg
+        shapes = tuple(tuple(f.shape[-2:]) for f in pyramid)
+        key = (shapes, str(device))
+        if key not in self._anchor_cache:
+            self._anchor_cache[key] = generate_anchors(shapes, cfg.strides, cfg.anchor_sizes,
+                                                       cfg.aspect_ratios, device)
+        return self._anchor_cache[key]
+
+    def detect(self, images: torch.Tensor, valid_hw: torch.Tensor) -> Detections:
+        """images (B, H, W, 3) raw pixels; valid_hw (B, 2) int. Returns
+        fixed-slot Detections in the canvas (resized-image) coordinates."""
+        cfg = self.cfg
+        pyramid = self.features(images, valid_hw)
+        objectness, deltas = self.rpn_head(pyramid)
+        anchors, counts = self._anchors(pyramid, images.device)
+        props, _, pvalid = select_proposals(
+            objectness, deltas, anchors, counts, valid_hw,
+            pre_nms_top_n=cfg.rpn_pre_nms_top_n_test,
+            post_nms_top_n=cfg.rpn_post_nms_top_n_test, nms_thresh=cfg.rpn_nms_thresh)
+
+        b, n = props.shape[:2]
+        levels = [f.permute(0, 2, 3, 1) for f in pyramid[: cfg.roi_levels]]   # NHWC
+        scales = [1.0 / s for s in cfg.strides[: cfg.roi_levels]]
+        pooled = self.roi_align([f.contiguous() for f in levels], props.contiguous(),
+                                pvalid.contiguous(), spatial_scales=scales)
+        rep = self.box_head(pooled.reshape(b * n, -1))
+        class_logits, box_regression = self.box_predictor(rep)
+        return postprocess_detections(
+            class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1), props,
+            pvalid, valid_hw, score_thresh=cfg.box_score_thresh,
+            nms_thresh=cfg.box_nms_thresh, detections_per_img=cfg.detections_per_img)
+
+    def forward(self, images: torch.Tensor, valid_hw: torch.Tensor) -> Detections:
+        return self.detect(images, valid_hw)
