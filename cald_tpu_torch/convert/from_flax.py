@@ -7,6 +7,12 @@ OIHW, Dense kernels from (in, out) to (out, in), FrozenBN ``scale``/``bias``/
 ``mean``/``var`` carry across. Module paths are the same in both packages
 except the Flax auto-named norms, which take torchvision's names. Every leaf
 is consumed exactly once; a leaf left over raises.
+
+Any tree shaped like the params collection maps the same way with
+``flax_to_state_dict({"params": tree})``: the JAX package's gradients
+(``jax.grad`` of the loss) or optax's momentum trace come out keyed and laid
+out like the port's parameters, which is how the tests hold the port's
+training against the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     for coll in ("params", "frozen"):
         for path, leaf in _leaves(variables.get(coll, {})):
             *mod, name = path
-            a = np.asarray(leaf, np.float32)
+            a = np.array(leaf, np.float32)          # a writable copy
             if coll == "params" and name == "kernel":
                 name = "weight"
                 if a.ndim == 4:      # HWIO -> OIHW

@@ -1,15 +1,21 @@
-// Multi-scale RoIAlign forward for Hopper (sm_90a): a direct bilinear gather.
+// Multi-scale RoIAlign for Hopper (sm_90a): the inference forward, the
+// training forward and the training backward.
 //
-// Replaces the TPU kernel cald_tpu/ops/flm_roi_align.py::_flm_kernel (the
-// default inference RoIAlign of the CALD scoring path). It computes the same
-// function, torchvision MultiScaleRoIAlign with aligned=False and
-// sampling_ratio 2, gathered back to proposal order, but not the TPU
-// formulation: there is no level-sorted slot plan and no full-level matmul.
-// Each block reads only the feature rows its samples touch.
+// K1, entry cald_roi_align_fwd, replaces cald_tpu/ops/flm_roi_align.py::
+// _flm_kernel (the default inference RoIAlign of the CALD scoring path).
+// K2, entry cald_roi_align_train_fwd, replaces cald_tpu/ops/pallas_roi_align.py::
+// _roi_kernel (the training forward, WIN_TRAIN window). Both are the same
+// gather kernel, roi_align_fwd_kernel, which computes torchvision
+// MultiScaleRoIAlign with aligned=False and sampling_ratio 2 in proposal
+// order, but not the TPU formulations: there is no level-sorted slot plan, no
+// full-level matmul and no DMA window. Each block reads only the feature rows
+// its samples touch, so every roi is exact, however wide (the TPU's training
+// window clamps rois wider than 48x56 at their level). K1 writes the feature
+// dtype, K2 float32 whatever the feature dtype, as the TPU kernels do.
 //
-// What bounds it on the H100: gather traffic. Per roi at a 7x7 output and
-// sampling_ratio 2 there are 196 samples x 4 bilinear corners x C channels to
-// read (about 400 KB of bf16 at C = 256) against 25 KB of bf16 output, and
+// What bounds the forward on the H100: gather traffic. Per roi at a 7x7 output
+// and sampling_ratio 2 there are 196 samples x 4 bilinear corners x C channels
+// to read (about 400 KB of bf16 at C = 256) against 25 KB of bf16 output, and
 // the rows read are scattered over the roi's level. The FLOPs are trivial.
 // What the design does about it:
 //   * channels-last levels, and threads run across C, so the 4 corner reads
@@ -20,12 +26,30 @@
 //   * blocks of one image are launched together, so that image's pyramid
 //     (about 28 MB of bf16 at a 640x1024 canvas, C = 256) stays in the
 //     50 MB L2 while its rois are pooled; neighbouring samples share rows;
-//   * sums are kept in fp32 and rounded once to the feature dtype.
+//   * sums are kept in fp32 and rounded once to the output dtype.
 // Invalid rois are written as zeros (the TPU kernel's dead slot).
+//
+// K3, entry cald_roi_align_bwd, replaces cald_tpu/ops/pallas_roi_align.py::
+// _roi_bwd_kernel: the gradient with respect to the levels, the transpose of
+// the forward's sample rule. The TPU kernel read-add-writes one window per
+// roi into a zeroed buffer and is race-free only because its grid runs in
+// order on one core. Here blocks run in any order on 132 SMs and the rois of
+// an image overlap, so roi_align_bwd_kernel scatters with fp32 atomicAdd into
+// a zeroed float32 channels-last buffer per level (allocated by the wrapper,
+// cast once to the feature dtype after). Same grid and shared-memory sample
+// plan as the forward: each thread owns channels, takes its bin's gradient
+// g / (sr * sr) and adds w * g into the 4 corners of each of the bin's
+// samples. Where the clamp at a level's edge makes two corners one pixel,
+// both adds land there, as autograd of the plain version gives. Invalid rois
+// and samples outside the level add nothing. What bounds it: the atomic
+// traffic into L2 (196 samples x 4 corners x C red.add per roi, about
+// 200,000 at C = 256); a warp's adds to one corner hit 32 consecutive floats,
+// which L2 merges into whole-sector reductions. The order of the adds, and so
+// the last bits of the sum, change from run to run.
 //
 // Layout: level l is (B, H_l, W_l, C) contiguous; rois (B, N, 4) f32 xyxy in
 // image coordinates; valid (B, N) bool; levels (B, N) int32 in [0, L);
-// out (B, N, S, S, C) in the feature dtype.
+// pooled / gradient of the output (B, N, S, S, C).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,45 +70,33 @@ __device__ __forceinline__ void from_float(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16_rn(v);
 }
 
-// grid: (B * N, S); block: threads across C.
-// dynamic shared memory: sr * S * sr samples x (4 int offsets + 4 weights).
-template <typename T>
-__global__ void roi_align_fwd_kernel(LevelArgs lv, const float* __restrict__ rois,
-                                     const bool* __restrict__ valid,
-                                     const int* __restrict__ levels,
-                                     T* __restrict__ out, int n, int c, int s, int sr) {
-  extern __shared__ unsigned char smem[];
-  const int r = blockIdx.x;        // roi index into B * N
-  const int py = blockIdx.y;       // output row
-  const int b = r / n;
-  T* o = out + ((size_t)r * s + py) * (size_t)s * c;
+// Sample position i (of s * sr along an axis) of a roi starting at `start`
+// with `extent`, each operation rounded as the plain version and the JAX
+// points path write it: the explicit roundings keep nvcc from fusing them
+// into an FMA. (On the card PyTorch divides by a scalar through its
+// reciprocal, so the plain version's positions there can differ by an ulp.)
+__device__ __forceinline__ float sample_pos(float start, float extent, int i, int s, int sr) {
+  const float step = __fdiv_rn((float)i + 0.5f, (float)sr);
+  return __fadd_rn(start, __fmul_rn(step, __fdiv_rn(extent, (float)s)));
+}
 
-  if (!valid[r]) {
-    for (int i = threadIdx.x; i < s * c; i += blockDim.x) from_float(0.f, o + i);
-    return;
-  }
-
-  const int l = levels[r];
-  const int h = lv.h[l];
-  const int w = lv.w[l];
-  const float scale = lv.scale[l];
-  const T* f = static_cast<const T*>(lv.ptr[l]) + (size_t)b * h * w * c;
-
+// The samples of output row py of one roi at level (h, w, scale): for each of
+// the sr * (s * sr) samples, 4 corner pixel offsets into the level and their
+// bilinear weights (0 for samples outside the level), into shared memory.
+// Every thread of the block takes part; the caller synchronises.
+__device__ __forceinline__ void plan_row(const float* roi, float scale, int h, int w, int py,
+                                         int s, int sr, int* off, float* wt) {
   const int ns = s * sr;           // samples along x for this row
   const int nsamp = sr * ns;       // samples of this output row
-  int* off = reinterpret_cast<int*>(smem);           // nsamp x 4 pixel offsets
-  float* wt = reinterpret_cast<float*>(off + 4 * nsamp);  // nsamp x 4 weights
-
-  const float x1 = rois[4 * r + 0] * scale;
-  const float y1 = rois[4 * r + 1] * scale;
-  const float roi_w = fmaxf(rois[4 * r + 2] * scale - x1, 1.f);
-  const float roi_h = fmaxf(rois[4 * r + 3] * scale - y1, 1.f);
-
+  const float x1 = __fmul_rn(roi[0], scale);
+  const float y1 = __fmul_rn(roi[1], scale);
+  const float roi_w = fmaxf(__fsub_rn(__fmul_rn(roi[2], scale), x1), 1.f);
+  const float roi_h = fmaxf(__fsub_rn(__fmul_rn(roi[3], scale), y1), 1.f);
   for (int t = threadIdx.x; t < nsamp; t += blockDim.x) {
     const int iy = t / ns;         // sub-sample row within the output row
     const int ix = t % ns;         // sample column
-    const float y = y1 + ((py * sr + iy) + 0.5f) / sr * (roi_h / s);
-    const float x = x1 + (ix + 0.5f) / sr * (roi_w / s);
+    const float y = sample_pos(y1, roi_h, py * sr + iy, s, sr);
+    const float x = sample_pos(x1, roi_w, ix, s, sr);
     int o4[4] = {0, 0, 0, 0};
     float w4[4] = {0.f, 0.f, 0.f, 0.f};
     if (y >= -1.f && y <= (float)h && x >= -1.f && x <= (float)w) {
@@ -106,6 +118,35 @@ __global__ void roi_align_fwd_kernel(LevelArgs lv, const float* __restrict__ roi
       wt[4 * t + k] = w4[k];
     }
   }
+}
+
+// grid: (B * N, S); block: threads across C.
+// dynamic shared memory: sr * S * sr samples x (4 int offsets + 4 weights).
+template <typename T, typename O>
+__global__ void roi_align_fwd_kernel(LevelArgs lv, const float* __restrict__ rois,
+                                     const bool* __restrict__ valid,
+                                     const int* __restrict__ levels,
+                                     O* __restrict__ out, int n, int c, int s, int sr) {
+  extern __shared__ unsigned char smem[];
+  const int r = blockIdx.x;        // roi index into B * N
+  const int py = blockIdx.y;       // output row
+  const int b = r / n;
+  O* o = out + ((size_t)r * s + py) * (size_t)s * c;
+
+  if (!valid[r]) {
+    for (int i = threadIdx.x; i < s * c; i += blockDim.x) from_float(0.f, o + i);
+    return;
+  }
+
+  const int l = levels[r];
+  const int h = lv.h[l];
+  const int w = lv.w[l];
+  const T* f = static_cast<const T*>(lv.ptr[l]) + (size_t)b * h * w * c;
+
+  const int ns = s * sr;
+  int* off = reinterpret_cast<int*>(smem);                // nsamp x 4 pixel offsets
+  float* wt = reinterpret_cast<float*>(off + 4 * sr * ns); // nsamp x 4 weights
+  plan_row(rois + 4 * r, lv.scale[l], h, w, py, s, sr, off, wt);
   __syncthreads();
 
   const float inv = 1.f / (float)(sr * sr);
@@ -127,40 +168,139 @@ __global__ void roi_align_fwd_kernel(LevelArgs lv, const float* __restrict__ roi
   }
 }
 
-// Plain C entry point, bound with ctypes. level_ptrs/level_h/level_w/
+// grid: (B * N, S); block: threads across C; shared memory as the forward.
+// lv.ptr[l] points at the float32 gradient of level l (zeroed by the caller).
+__global__ void roi_align_bwd_kernel(LevelArgs lv, const float* __restrict__ rois,
+                                     const bool* __restrict__ valid,
+                                     const int* __restrict__ levels,
+                                     const float* __restrict__ grad_out, int n, int c, int s,
+                                     int sr) {
+  extern __shared__ unsigned char smem[];
+  const int r = blockIdx.x;
+  const int py = blockIdx.y;
+  if (!valid[r]) return;
+  const int b = r / n;
+  const int l = levels[r];
+  const int h = lv.h[l];
+  const int w = lv.w[l];
+  float* gf = static_cast<float*>(const_cast<void*>(lv.ptr[l])) + (size_t)b * h * w * c;
+  const float* g = grad_out + ((size_t)r * s + py) * (size_t)s * c;
+
+  const int ns = s * sr;
+  int* off = reinterpret_cast<int*>(smem);
+  float* wt = reinterpret_cast<float*>(off + 4 * sr * ns);
+  plan_row(rois + 4 * r, lv.scale[l], h, w, py, s, sr, off, wt);
+  __syncthreads();
+
+  const float inv = 1.f / (float)(sr * sr);
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    float* gc = gf + ch;
+    for (int px = 0; px < s; ++px) {
+      const float gv = g[(size_t)px * c + ch] * inv;
+      for (int iy = 0; iy < sr; ++iy) {
+        for (int jx = 0; jx < sr; ++jx) {
+          const int t = iy * ns + px * sr + jx;
+          for (int k = 0; k < 4; ++k) {
+            const float wk = wt[4 * t + k];
+            // the same for every thread of the block: no divergence
+            if (wk != 0.f) atomicAdd(gc + (size_t)off[4 * t + k] * c, wk * gv);
+          }
+        }
+      }
+    }
+  }
+}
+
+static int fill_levels(LevelArgs* lv, const void* const* level_ptrs, const int* level_h,
+                       const int* level_w, const float* level_scale, int num_levels) {
+  if (num_levels < 1 || num_levels > CALD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < CALD_MAX_LEVELS; ++i) {
+    const bool used = i < num_levels;
+    lv->ptr[i] = used ? level_ptrs[i] : nullptr;
+    lv->h[i] = used ? level_h[i] : 0;
+    lv->w[i] = used ? level_w[i] : 0;
+    lv->scale[i] = used ? level_scale[i] : 0.f;
+  }
+  return (int)cudaSuccess;
+}
+
+static int threads_for(int c) { return c >= 256 ? 256 : ((c + 31) / 32) * 32; }
+
+static size_t smem_for(int out_size, int sampling_ratio) {
+  return (size_t)sampling_ratio * out_size * sampling_ratio * 4 * (sizeof(int) + sizeof(float));
+}
+
+// out_f32: 0 = output in the feature dtype (K1), 1 = float32 output (K2).
+static int launch_fwd(const void* const* level_ptrs, const int* level_h, const int* level_w,
+                      const float* level_scale, int num_levels, const float* rois,
+                      const bool* valid, const int* levels, void* out, int b, int n, int c,
+                      int out_size, int sampling_ratio, int dtype, int out_f32, void* stream) {
+  LevelArgs lv;
+  const int err = fill_levels(&lv, level_ptrs, level_h, level_w, level_scale, num_levels);
+  if (err != (int)cudaSuccess) return err;
+  if (b * n == 0) return (int)cudaSuccess;
+  const dim3 grid(b * n, out_size);
+  const int threads = threads_for(c);
+  const size_t smem = smem_for(out_size, sampling_ratio);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    roi_align_fwd_kernel<float, float><<<grid, threads, smem, st>>>(
+        lv, rois, valid, levels, static_cast<float*>(out), n, c, out_size, sampling_ratio);
+  } else if (dtype == 1 && out_f32) {
+    roi_align_fwd_kernel<__nv_bfloat16, float><<<grid, threads, smem, st>>>(
+        lv, rois, valid, levels, static_cast<float*>(out), n, c, out_size, sampling_ratio);
+  } else if (dtype == 1) {
+    roi_align_fwd_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, threads, smem, st>>>(
+        lv, rois, valid, levels, static_cast<__nv_bfloat16*>(out), n, c, out_size,
+        sampling_ratio);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry points, bound with ctypes. level_ptrs/level_h/level_w/
 // level_scale are HOST arrays of num_levels entries; every other pointer is
-// device memory. dtype: 0 = float32, 1 = bfloat16. Launches on `stream` and
-// returns cudaGetLastError() (0 on success); it never synchronises.
+// device memory. dtype is the feature dtype: 0 = float32, 1 = bfloat16. Each
+// launches on `stream` and returns cudaGetLastError() (0 on success); none
+// synchronises.
+
+// K1: out (B, N, S, S, C) in the feature dtype.
 extern "C" int cald_roi_align_fwd(const void* const* level_ptrs, const int* level_h,
                                   const int* level_w, const float* level_scale,
                                   int num_levels, const float* rois, const bool* valid,
                                   const int* levels, void* out, int b, int n, int c,
                                   int out_size, int sampling_ratio, int dtype,
                                   void* stream) {
-  if (num_levels < 1 || num_levels > CALD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  return launch_fwd(level_ptrs, level_h, level_w, level_scale, num_levels, rois, valid, levels,
+                    out, b, n, c, out_size, sampling_ratio, dtype, 0, stream);
+}
+
+// K2: out (B, N, S, S, C) float32.
+extern "C" int cald_roi_align_train_fwd(const void* const* level_ptrs, const int* level_h,
+                                        const int* level_w, const float* level_scale,
+                                        int num_levels, const float* rois, const bool* valid,
+                                        const int* levels, float* out, int b, int n, int c,
+                                        int out_size, int sampling_ratio, int dtype,
+                                        void* stream) {
+  return launch_fwd(level_ptrs, level_h, level_w, level_scale, num_levels, rois, valid, levels,
+                    out, b, n, c, out_size, sampling_ratio, dtype, 1, stream);
+}
+
+// K3: grad_ptrs are the float32 (B, H_l, W_l, C) level gradients, zeroed by
+// the caller; grad_out (B, N, S, S, C) float32.
+extern "C" int cald_roi_align_bwd(void* const* grad_ptrs, const int* level_h,
+                                  const int* level_w, const float* level_scale, int num_levels,
+                                  const float* rois, const bool* valid, const int* levels,
+                                  const float* grad_out, int b, int n, int c, int out_size,
+                                  int sampling_ratio, void* stream) {
   LevelArgs lv;
-  for (int i = 0; i < CALD_MAX_LEVELS; ++i) {
-    const bool used = i < num_levels;
-    lv.ptr[i] = used ? level_ptrs[i] : nullptr;
-    lv.h[i] = used ? level_h[i] : 0;
-    lv.w[i] = used ? level_w[i] : 0;
-    lv.scale[i] = used ? level_scale[i] : 0.f;
-  }
+  const int err = fill_levels(&lv, grad_ptrs, level_h, level_w, level_scale, num_levels);
+  if (err != (int)cudaSuccess) return err;
   if (b * n == 0) return (int)cudaSuccess;
-  const int threads = c >= 256 ? 256 : ((c + 31) / 32) * 32;
   const dim3 grid(b * n, out_size);
-  const size_t smem = (size_t)sampling_ratio * out_size * sampling_ratio * 4 *
-                      (sizeof(int) + sizeof(float));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, threads, smem, st>>>(
-        lv, rois, valid, levels, static_cast<float*>(out), n, c, out_size, sampling_ratio);
-  } else if (dtype == 1) {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, smem, st>>>(
-        lv, rois, valid, levels, static_cast<__nv_bfloat16*>(out), n, c, out_size,
-        sampling_ratio);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  roi_align_bwd_kernel<<<grid, threads_for(c), smem_for(out_size, sampling_ratio),
+                         static_cast<cudaStream_t>(stream)>>>(
+      lv, rois, valid, levels, grad_out, n, c, out_size, sampling_ratio);
   return (int)cudaGetLastError();
 }

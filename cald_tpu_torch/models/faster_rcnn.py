@@ -1,11 +1,13 @@
-"""Faster R-CNN inference, assembled (port of ``cald_tpu/models/faster_rcnn.py``).
+"""Faster R-CNN, assembled (port of ``cald_tpu/models/faster_rcnn.py``).
 
 Images arrive as fixed-canvas padded NHWC batches of raw 0..255 pixels with
 their valid (h, w); ``detect`` returns exactly ``detections_per_img`` slots per
-image with the CALD extras. Inside the backbone tensors are NCHW in
-``torch.channels_last`` format; the pyramid handed to RoIAlign is NHWC.
-RoIAlign goes through ``ops.roi_align_cuda.roi_align_kernel``: the Hopper
-kernel for CUDA tensors, its plain version for CPU tensors.
+image with the CALD extras, and ``loss`` the four training losses. Inside the
+backbone tensors are NCHW in ``torch.channels_last`` format; the pyramid
+handed to RoIAlign is NHWC. Inference RoIAlign goes through
+``ops.roi_align_cuda.roi_align_kernel`` (K1), training RoIAlign through
+``RoIAlignFunction`` (K2 forward, K3 backward): the Hopper kernels for CUDA
+tensors, their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ from torch import nn
 from cald_tpu_torch.models.anchors import ASPECT_RATIOS, FRCNN_SIZES, generate_anchors
 from cald_tpu_torch.models.detections import Detections
 from cald_tpu_torch.models.fpn import FPN
+from cald_tpu_torch.models.matcher import Draw
 from cald_tpu_torch.models.resnet import ResNetBackbone
 from cald_tpu_torch.models.roi_heads import (
-    FastRCNNPredictor, TwoMLPHead, postprocess_detections,
+    FastRCNNPredictor, TwoMLPHead, fastrcnn_loss, pool_box_features,
+    postprocess_detections, select_training_samples,
 )
-from cald_tpu_torch.models.rpn import RPNHead, select_proposals
+from cald_tpu_torch.models.rpn import RPNHead, rpn_loss, select_proposals
 from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel
 
 # torchvision GeneralizedRCNNTransform defaults
@@ -35,7 +39,8 @@ BACKBONES = {"resnet50": ((3, 4, 6, 3), 64), "tiny": ((1, 1, 1, 1), 16)}
 
 @dataclasses.dataclass(frozen=True)
 class FasterRCNNConfig:
-    """Inference configuration (the JAX package's defaults)."""
+    """Architecture, training and inference configuration (the JAX package's
+    defaults)."""
 
     num_classes: int = 21
     backbone: str = "resnet50"          # resnet50 | tiny
@@ -44,12 +49,22 @@ class FasterRCNNConfig:
     fpn_channels: int = 256
     anchor_sizes: tuple = FRCNN_SIZES
     aspect_ratios: tuple = ASPECT_RATIOS
+    rpn_pre_nms_top_n_train: int = 2000
     rpn_pre_nms_top_n_test: int = 1000
+    rpn_post_nms_top_n_train: int = 2000
     rpn_post_nms_top_n_test: int = 1000
     rpn_nms_thresh: float = 0.7
+    rpn_fg_iou: float = 0.7
+    rpn_bg_iou: float = 0.3
+    rpn_batch_size_per_image: int = 256
+    rpn_positive_fraction: float = 0.5
     box_score_thresh: float = 0.05
     box_nms_thresh: float = 0.5
     detections_per_img: int = 100
+    box_fg_iou: float = 0.5
+    box_bg_iou: float = 0.5
+    box_batch_size_per_image: int = 512
+    box_positive_fraction: float = 0.25
     representation_size: int = 1024
 
     strides = (4, 8, 16, 32, 64)
@@ -86,12 +101,13 @@ class FasterRCNN(nn.Module):
                                                dtype=dt)
         self.roi_align = roi_align_kernel
         self._anchor_cache: dict = {}
+        # on the model's device, so that normalizing copies nothing from the host
+        self.register_buffer("pixel_mean", torch.from_numpy(IMAGENET_MEAN), persistent=False)
+        self.register_buffer("pixel_std", torch.from_numpy(IMAGENET_STD), persistent=False)
 
     def features(self, images: torch.Tensor, valid_hw: torch.Tensor) -> list[torch.Tensor]:
         """FPN pyramid, NCHW channels-last tensors, finest first (P2..P6)."""
-        mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
-        std = torch.as_tensor(IMAGENET_STD, device=images.device)
-        x = (images / 255.0 - mean) / std
+        x = (images / 255.0 - self.pixel_mean) / self.pixel_std
         if self.dtype is not None:
             x = x.to(self.dtype)
         # zero the canvas padding in NORMALIZED space, as the reference
@@ -104,11 +120,67 @@ class FasterRCNN(nn.Module):
     def _anchors(self, pyramid, device):
         cfg = self.cfg
         shapes = tuple(tuple(f.shape[-2:]) for f in pyramid)
-        key = (shapes, str(device))
+        # anchors made under inference mode are inference tensors, which
+        # autograd refuses to save: training never reuses them
+        key = (shapes, str(device), torch.is_inference_mode_enabled())
         if key not in self._anchor_cache:
             self._anchor_cache[key] = generate_anchors(shapes, cfg.strides, cfg.anchor_sizes,
                                                        cfg.aspect_ratios, device)
         return self._anchor_cache[key]
+
+    def _roi_levels(self, pyramid):
+        """The NHWC levels RoIAlign reads and their spatial scales."""
+        cfg = self.cfg
+        levels = [f.permute(0, 2, 3, 1).contiguous() for f in pyramid[: cfg.roi_levels]]
+        return levels, [1.0 / s for s in cfg.strides[: cfg.roi_levels]]
+
+    def loss(self, images: torch.Tensor, valid_hw: torch.Tensor, gt_boxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor, draw: Draw, *,
+             per_image: bool = False):
+        """Training losses. images (B, H, W, 3) raw pixels; valid_hw (B, 2);
+        gt_boxes (B, G, 4) canvas xyxy, gt_labels (B, G), gt_valid (B, G).
+        ``draw`` supplies the samplers' Gumbel noise: streams 0/1 for the RPN
+        sampler's positives/negatives, 2/3 for the box head's.
+
+        Returns (losses, pyramid): dict(loss_objectness, loss_rpn_box_reg,
+        loss_classifier, loss_box_reg) of scalars, or of (B,) vectors with
+        ``per_image=True``, and the FPN pyramid (NCHW, finest first).
+        """
+        cfg = self.cfg
+        pyramid = self.features(images, valid_hw)
+        objectness, deltas = self.rpn_head(pyramid)
+        anchors, counts = self._anchors(pyramid, images.device)
+        obj_loss, rpn_box_loss = rpn_loss(
+            objectness, deltas, anchors, gt_boxes, gt_valid, draw,
+            batch_size_per_image=cfg.rpn_batch_size_per_image,
+            positive_fraction=cfg.rpn_positive_fraction, fg_iou=cfg.rpn_fg_iou,
+            bg_iou=cfg.rpn_bg_iou, stream=0)
+
+        # proposals are fixed inputs to the second stage (JAX's stop_gradient)
+        with torch.no_grad():
+            props, _, pvalid = select_proposals(
+                objectness.detach(), deltas.detach(), anchors, counts, valid_hw,
+                pre_nms_top_n=cfg.rpn_pre_nms_top_n_train,
+                post_nms_top_n=cfg.rpn_post_nms_top_n_train, nms_thresh=cfg.rpn_nms_thresh)
+            rois, labels, reg_targets, is_pos, valid = select_training_samples(
+                props, pvalid, gt_boxes, gt_labels, gt_valid, draw,
+                batch_size_per_image=cfg.box_batch_size_per_image,
+                positive_fraction=cfg.box_positive_fraction, fg_iou=cfg.box_fg_iou,
+                bg_iou=cfg.box_bg_iou, stream=2)
+
+        levels, scales = self._roi_levels(pyramid)
+        box_feats = pool_box_features(levels, rois, valid, scales)    # (B, S, 7, 7, C) f32
+        b, s = rois.shape[:2]
+        rep = self.box_head(box_feats.reshape(b * s, -1))
+        class_logits, box_regression = self.box_predictor(rep)
+        cls_loss, box_loss = fastrcnn_loss(class_logits.reshape(b, s, -1),
+                                           box_regression.reshape(b, s, -1), labels,
+                                           reg_targets, is_pos, valid)
+        losses = {"loss_objectness": obj_loss, "loss_rpn_box_reg": rpn_box_loss,
+                  "loss_classifier": cls_loss, "loss_box_reg": box_loss}
+        if not per_image:
+            losses = {k: v.mean() for k, v in losses.items()}
+        return losses, pyramid
 
     def detect(self, images: torch.Tensor, valid_hw: torch.Tensor) -> Detections:
         """images (B, H, W, 3) raw pixels; valid_hw (B, 2) int. Returns
@@ -123,10 +195,9 @@ class FasterRCNN(nn.Module):
             post_nms_top_n=cfg.rpn_post_nms_top_n_test, nms_thresh=cfg.rpn_nms_thresh)
 
         b, n = props.shape[:2]
-        levels = [f.permute(0, 2, 3, 1) for f in pyramid[: cfg.roi_levels]]   # NHWC
-        scales = [1.0 / s for s in cfg.strides[: cfg.roi_levels]]
-        pooled = self.roi_align([f.contiguous() for f in levels], props.contiguous(),
-                                pvalid.contiguous(), spatial_scales=scales)
+        levels, scales = self._roi_levels(pyramid)
+        pooled = self.roi_align(levels, props.contiguous(), pvalid.contiguous(),
+                                spatial_scales=scales)
         rep = self.box_head(pooled.reshape(b * n, -1))
         class_logits, box_regression = self.box_predictor(rep)
         return postprocess_detections(

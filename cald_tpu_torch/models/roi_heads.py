@@ -1,7 +1,16 @@
-"""Faster R-CNN box head at inference, with the CALD extras (port of
-``cald_tpu/models/roi_heads.py``)."""
+"""Faster R-CNN box head, with the CALD extras (port of
+``cald_tpu/models/roi_heads.py``).
+
+Training: gt boxes are appended to the proposals, matched at 0.5/0.5 (no
+low-quality matches) and sampled 512 @ 25% positives; the losses are cross
+entropy and smooth-L1 (beta 1/9) on the matched class's regression row, both
+normalized by the sample count. Inference: softmax rows expand to (proposal,
+class) instances, score filter 0.05, per-class NMS 0.5, top-100.
+"""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -9,8 +18,11 @@ from torch import nn
 
 from cald_tpu_torch.models.detections import Detections
 from cald_tpu_torch.models.layers import Dense
-from cald_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+from cald_tpu_torch.models.matcher import BETWEEN, Draw, balanced_sample, match_anchors
+from cald_tpu_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes
+from cald_tpu_torch.ops.losses import smooth_l1_loss
 from cald_tpu_torch.ops.nms import batched_nms
+from cald_tpu_torch.ops.roi_align_cuda import RoIAlignFunction
 
 ROI_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
@@ -40,6 +52,75 @@ class FastRCNNPredictor(nn.Module):
     def forward(self, x: torch.Tensor):
         """Returns float32 class logits (R, C) and box regression (R, 4C)."""
         return self.cls_score(x).float(), self.bbox_pred(x).float()
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a (B, N, ...) gathered along N by idx (B, K) -> (B, K, ...)."""
+    return torch.gather(a, 1, idx.reshape(idx.shape + (1,) * (a.dim() - 2)).expand(
+        idx.shape + a.shape[2:]))
+
+
+def select_training_samples(proposals: torch.Tensor, prop_valid: torch.Tensor,
+                            gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                            gt_valid: torch.Tensor, draw: Draw, *,
+                            batch_size_per_image: int = 512,
+                            positive_fraction: float = 0.25, fg_iou: float = 0.5,
+                            bg_iou: float = 0.5, stream: int = 2):
+    """Pick the fixed training sample set of each image.
+
+    proposals (B, P, 4), prop_valid (B, P), gt (B, G, ...). The gt boxes are
+    appended to the proposals before matching (torchvision
+    ``add_gt_proposals``); padding slots are never sampled. The sampler's
+    noise is ``draw(stream)`` / ``draw(stream + 1)``.
+
+    Returns rois (B, S, 4), labels (B, S) int64, reg_targets (B, S, 4),
+    is_pos (B, S) and valid (B, S).
+    """
+    all_props = torch.cat([proposals, gt_boxes], dim=1)
+    all_valid = torch.cat([prop_valid, gt_valid], dim=1)
+    matches = match_anchors(gt_boxes, gt_valid, all_props, high=fg_iou, low=bg_iou,
+                            allow_low_quality=False)
+    matches = torch.where(all_valid, matches, torch.full_like(matches, BETWEEN))
+    idx, is_pos, valid = balanced_sample(matches, draw, num_samples=batch_size_per_image,
+                                         positive_fraction=positive_fraction, stream=stream)
+    rois = _take(all_props, idx)
+    m = torch.gather(matches, 1, idx).clamp_min(0)
+    labels = torch.where(is_pos, torch.gather(gt_labels.long(), 1, m),
+                         torch.zeros_like(m))
+    reg_targets = encode_boxes(_take(gt_boxes, m), rois, weights=ROI_REG_WEIGHTS)
+    return rois, labels, reg_targets, is_pos, valid
+
+
+def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor,
+                  labels: torch.Tensor, reg_targets: torch.Tensor, is_pos: torch.Tensor,
+                  valid: torch.Tensor):
+    """Per-image losses: cross entropy over the sampled rois and smooth-L1 over
+    the positives, both divided by the sample count. class_logits (B, S, C),
+    box_regression (B, S, 4C). Returns (cls_loss (B,), box_loss (B,))."""
+    b, s, c = class_logits.shape
+    logp = F.log_softmax(class_logits, dim=-1)
+    ce = -torch.gather(logp, 2, labels[..., None])[..., 0]
+    vf = valid.to(ce.dtype)
+    n_sampled = vf.sum(dim=1).clamp_min(1.0)
+    cls_loss = (ce * vf).sum(dim=1) / n_sampled
+    br = box_regression.reshape(b, s, c, 4)
+    picked = torch.gather(br, 2, labels[..., None, None].expand(b, s, 1, 4))[:, :, 0]
+    l1 = smooth_l1_loss(picked, reg_targets, beta=1.0 / 9.0).sum(dim=-1)
+    box_loss = (l1 * (is_pos & valid).to(l1.dtype)).sum(dim=1) / n_sampled
+    return cls_loss, box_loss
+
+
+def pool_box_features(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                      valid: torch.Tensor, spatial_scales: Sequence[float], *,
+                      output_size: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
+    """Training MultiScaleRoIAlign over the NHWC levels P2..P5: (B, S, 7, 7, C)
+    float32, differentiable with respect to the levels (K2 forward and K3
+    backward on the card). Invalid sample slots pool to zeros; the losses
+    mask them, so losses and gradients equal pooling them. The rois get no
+    gradient."""
+    return RoIAlignFunction.apply(rois.detach().contiguous(), valid.contiguous(),
+                                  tuple(spatial_scales), output_size, sampling_ratio,
+                                  *[f.contiguous() for f in feats])
 
 
 def postprocess_detections(class_logits: torch.Tensor, box_regression: torch.Tensor,

@@ -1,4 +1,7 @@
-"""Region Proposal Network at inference (port of ``cald_tpu/models/rpn.py``)."""
+"""Region Proposal Network (port of ``cald_tpu/models/rpn.py``): the shared
+head, proposal selection into fixed slots, and the loss with 256 sampled
+anchors @ 50% positives (BCE objectness + smooth-L1 box regression, beta 1/9,
+normalized by the sample count)."""
 
 from __future__ import annotations
 
@@ -9,7 +12,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from cald_tpu_torch.models.layers import Conv
-from cald_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+from cald_tpu_torch.models.matcher import Draw, balanced_sample, match_anchors
+from cald_tpu_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes
+from cald_tpu_torch.ops.losses import bce_with_logits, smooth_l1_loss
 from cald_tpu_torch.ops.nms import batched_nms
 
 
@@ -82,3 +87,27 @@ def select_proposals(objectness: torch.Tensor, deltas: torch.Tensor,
     out_boxes = torch.gather(boxes, 1, keep_idx[..., None].expand(-1, -1, 4))
     out_scores = torch.gather(probs, 1, keep_idx)
     return (out_boxes * keep_valid[..., None], out_scores * keep_valid, keep_valid)
+
+
+def rpn_loss(objectness: torch.Tensor, deltas: torch.Tensor, anchors: torch.Tensor,
+             gt_boxes: torch.Tensor, gt_valid: torch.Tensor, draw: Draw, *,
+             batch_size_per_image: int = 256, positive_fraction: float = 0.5,
+             fg_iou: float = 0.7, bg_iou: float = 0.3, stream: int = 0):
+    """Per-image RPN losses (objectness (B,), box (B,)). objectness (B, N),
+    deltas (B, N, 4), anchors (N, 4), gt_boxes (B, G, 4), gt_valid (B, G).
+    The sampler's noise is ``draw(stream)`` / ``draw(stream + 1)``."""
+    matches = match_anchors(gt_boxes, gt_valid, anchors, high=fg_iou, low=bg_iou,
+                            allow_low_quality=True)
+    idx, is_pos, valid = balanced_sample(matches, draw, num_samples=batch_size_per_image,
+                                         positive_fraction=positive_fraction, stream=stream)
+    vf = valid.to(objectness.dtype)
+    n_sampled = vf.sum(dim=1).clamp_min(1.0)
+    bce = bce_with_logits(torch.gather(objectness, 1, idx), is_pos.to(objectness.dtype))
+    obj_loss = (bce * vf).sum(dim=1) / n_sampled
+
+    sel = idx[..., None].expand(-1, -1, 4)
+    m = torch.gather(matches, 1, idx).clamp_min(0)[..., None].expand(-1, -1, 4)
+    targets = encode_boxes(torch.gather(gt_boxes, 1, m), anchors[idx])
+    l1 = smooth_l1_loss(torch.gather(deltas, 1, sel), targets, beta=1.0 / 9.0).sum(dim=-1)
+    box_loss = (l1 * (is_pos & valid).to(l1.dtype)).sum(dim=1) / n_sampled
+    return obj_loss, box_loss

@@ -6,8 +6,11 @@ torchvision ``MultiScaleRoIAlign`` semantics: ``aligned=False``,
 clamped to the pyramid, and torchvision's border handling (samples with
 y < -1 or y > H contribute zero, others are clamped into the level).
 
-This is the plain version of the Hopper kernel in ``ops/roi_align_cuda.py``:
-the CPU path of the detector and the yardstick the kernel is held to.
+These are the plain versions of the Hopper kernels in ``ops/roi_align_cuda.py``:
+``multi_scale_roi_align`` of the inference forward (K1, output in the feature
+dtype) and of the training forward (K2, ``out_dtype=torch.float32``), and
+``multi_scale_roi_align_backward`` of the training backward (K3). They are
+the CPU path of the detector and the yardstick the kernels are held to.
 """
 
 from __future__ import annotations
@@ -39,18 +42,78 @@ def roi_levels(rois: torch.Tensor, spatial_scales: Sequence[float]) -> torch.Ten
     return lv.clamp(0, len(spatial_scales) - 1)
 
 
+def _div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d`` as an IEEE division on every device: PyTorch's CUDA kernels
+    multiply by the reciprocal of a Python-scalar divisor, which moves sample
+    positions by an ulp against the CPU, the JAX reference and the kernels."""
+    return a / torch.full((), float(d), dtype=a.dtype, device=a.device)
+
+
 def _axis_samples(start, extent, n_valid, out_size: int, sr: int):
     """Sample positions along one axis for every roi: (R, out_size*sr) base
     index, its neighbour, the fraction, and the border mask."""
-    steps = (torch.arange(out_size * sr, dtype=torch.float32,
-                          device=start.device) + 0.5) / sr
-    pos = start[:, None] + steps * (extent / out_size)[:, None]
+    steps = _div(torch.arange(out_size * sr, dtype=torch.float32, device=start.device) + 0.5,
+                 sr)
+    pos = start[:, None] + steps * _div(extent, out_size)[:, None]
     n = n_valid[:, None]
     inside = (pos >= -1.0) & (pos <= n)
     p = torch.minimum(pos.clamp_min(0.0), n - 1.0)
     lo = torch.floor(p)
     hi = torch.minimum(lo + 1.0, n - 1.0)
-    return lo.to(torch.int64), hi.to(torch.int64), p - lo, inside
+    # samples outside (a non-finite roi's too) read pixel 0 with weight 0
+    zero = torch.zeros((), dtype=torch.int64, device=pos.device)
+    return (torch.where(inside, lo.to(torch.int64), zero),
+            torch.where(inside, hi.to(torch.int64), zero), p - lo, inside)
+
+
+class _Pyramid:
+    """The levels flattened to one (B * P, C) row buffer: each roi reads only
+    at its own level through a per-level row offset."""
+
+    def __init__(self, level_shapes: Sequence[tuple], spatial_scales: Sequence[float],
+                 device):
+        sizes = [s[1] * s[2] for s in level_shapes]
+        self.p_total = sum(sizes)
+        self.hs = torch.tensor([float(s[1]) for s in level_shapes], device=device)
+        self.ws = torch.tensor([float(s[2]) for s in level_shapes], device=device)
+        self.scales = torch.tensor(list(spatial_scales), dtype=torch.float32, device=device)
+        self.offs = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=device)
+
+
+def _chunks(pyr: _Pyramid, rois: torch.Tensor, valid, levels, output_size: int,
+            sampling_ratio: int, chunk_size: int):
+    """Per chunk of rois: its slice of the (B * N) rois and the four bilinear
+    corners of every sample as (row index into the flat pyramid (R, S, S),
+    weight (R, S, S)). Samples outside the level (torchvision's border rule)
+    and invalid rois carry weight 0."""
+    b, n = rois.shape[:2]
+    dev = rois.device
+    rois_f = rois.reshape(-1, 4).float()
+    lv = levels.reshape(-1).long()
+    img = torch.arange(b, device=dev).repeat_interleave(n)
+    keep = (valid.reshape(-1) if valid is not None
+            else torch.ones(b * n, dtype=torch.bool, device=dev))
+    for start in range(0, b * n, chunk_size):
+        sl = slice(start, min(start + chunk_size, b * n))
+        r = rois_f[sl]
+        l = lv[sl]
+        scale = pyr.scales[l]
+        h_l, w_l = pyr.hs[l], pyr.ws[l]
+        x1 = r[:, 0] * scale
+        y1 = r[:, 1] * scale
+        roi_w = (r[:, 2] * scale - x1).clamp_min(1.0)
+        roi_h = (r[:, 3] * scale - y1).clamp_min(1.0)
+        y0, y1i, ly, in_y = _axis_samples(y1, roi_h, h_l, output_size, sampling_ratio)
+        x0, x1i, lx, in_x = _axis_samples(x1, roi_w, w_l, output_size, sampling_ratio)
+        base = (img[sl] * pyr.p_total + pyr.offs[l])[:, None, None]
+        wi = w_l.long()[:, None, None]
+        inside = in_y[:, :, None] & in_x[:, None, :] & keep[sl, None, None]
+        hy, hx = 1.0 - ly, 1.0 - lx
+        zero = torch.zeros((), device=dev)
+        corners = [(base + yi[:, :, None] * wi + xi[:, None, :],
+                    torch.where(inside, wy[:, :, None] * wx[:, None, :], zero))
+                   for yi, wy in ((y0, hy), (y1i, ly)) for xi, wx in ((x0, hx), (x1i, lx))]
+        yield sl, corners
 
 
 def multi_scale_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
@@ -58,64 +121,68 @@ def multi_scale_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
                           valid: torch.Tensor | None = None,
                           levels: torch.Tensor | None = None,
                           output_size: int = 7, sampling_ratio: int = 2,
-                          chunk_size: int = 256) -> torch.Tensor:
+                          chunk_size: int = 256,
+                          out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """RoIAlign over an FPN pyramid with per-roi level assignment.
 
     feats: list of (B, H_l, W_l, C) levels, finest first; rois (B, N, 4) in
     image coordinates; valid optional (B, N) bool (invalid rois give zeros);
     levels optional (B, N) level per roi (default: ``roi_levels``).
-    Returns (B, N, output_size, output_size, C) in the feature dtype. Sums
-    are taken in float32.
+    Returns (B, N, output_size, output_size, C) in ``out_dtype`` (default:
+    the feature dtype). Sums are taken in float32.
+
+    Differentiable with respect to ``feats`` by autograd; the explicit
+    backward is ``multi_scale_roi_align_backward``.
     """
     b, n = rois.shape[:2]
     c = feats[0].shape[-1]
     dev = rois.device
     if levels is None:
         levels = roi_levels(rois, spatial_scales)
-    # the pyramid flattened to one (B * P, C) row buffer; each roi gathers
-    # only at its own level through a per-level row offset
-    sizes = [f.shape[1] * f.shape[2] for f in feats]
-    p_total = sum(sizes)
-    flat = torch.cat([f.reshape(b, -1, c) for f in feats], dim=1).reshape(b * p_total, c)
-    hs = torch.tensor([float(f.shape[1]) for f in feats], device=dev)
-    ws = torch.tensor([float(f.shape[2]) for f in feats], device=dev)
-    scales = torch.tensor(list(spatial_scales), dtype=torch.float32, device=dev)
-    offs = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
-
-    rois_f = rois.reshape(-1, 4).float()
-    lv = levels.reshape(-1).long()
-    img = torch.arange(b, device=dev).repeat_interleave(n)
-    keep = (valid.reshape(-1) if valid is not None
-            else torch.ones(b * n, dtype=torch.bool, device=dev))
+    pyr = _Pyramid([f.shape for f in feats], spatial_scales, dev)
+    flat = torch.cat([f.reshape(b, -1, c) for f in feats], dim=1).reshape(-1, c)
     s = output_size * sampling_ratio
-
     out = torch.zeros((b * n, output_size, output_size, c), dtype=torch.float32, device=dev)
-    for start in range(0, b * n, chunk_size):
-        sl = slice(start, min(start + chunk_size, b * n))
-        r = rois_f[sl]
-        l = lv[sl]
-        scale = scales[l]
-        h_l, w_l = hs[l], ws[l]
-        x1 = r[:, 0] * scale
-        y1 = r[:, 1] * scale
-        roi_w = (r[:, 2] * scale - x1).clamp_min(1.0)
-        roi_h = (r[:, 3] * scale - y1).clamp_min(1.0)
-        y0, y1i, ly, in_y = _axis_samples(y1, roi_h, h_l, output_size, sampling_ratio)
-        x0, x1i, lx, in_x = _axis_samples(x1, roi_w, w_l, output_size, sampling_ratio)
-        base = (img[sl] * p_total + offs[l])[:, None, None]
-        wi = w_l.long()[:, None, None]
-
-        def corner(yi, xi):                                   # (R, S, S, C) f32
-            rows = base + yi[:, :, None] * wi + xi[:, None, :]
-            return flat[rows.reshape(-1)].reshape(-1, s, s, c).float()
-
-        hy, hx = 1.0 - ly, 1.0 - lx
-        val = ((hy[:, :, None] * hx[:, None, :])[..., None] * corner(y0, x0)
-               + (hy[:, :, None] * lx[:, None, :])[..., None] * corner(y0, x1i)
-               + (ly[:, :, None] * hx[:, None, :])[..., None] * corner(y1i, x0)
-               + (ly[:, :, None] * lx[:, None, :])[..., None] * corner(y1i, x1i))
-        inside = in_y[:, :, None] & in_x[:, None, :] & keep[sl, None, None]
-        val = torch.where(inside[..., None], val, torch.zeros((), device=dev))
+    for sl, corners in _chunks(pyr, rois, valid, levels, output_size, sampling_ratio,
+                               chunk_size):
+        val = sum(w[..., None] * flat[rows.reshape(-1)].reshape(-1, s, s, c).float()
+                  for rows, w in corners)
         out[sl] = val.reshape(-1, output_size, sampling_ratio, output_size,
                               sampling_ratio, c).mean(dim=(2, 4))
-    return out.reshape(b, n, output_size, output_size, c).to(feats[0].dtype)
+    return out.reshape(b, n, output_size, output_size, c).to(out_dtype or feats[0].dtype)
+
+
+def multi_scale_roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
+                                   valid: torch.Tensor | None, levels: torch.Tensor,
+                                   level_shapes: Sequence[tuple], *,
+                                   spatial_scales: Sequence[float],
+                                   output_size: int = 7, sampling_ratio: int = 2,
+                                   chunk_size: int = 256) -> list[torch.Tensor]:
+    """The gradient of ``multi_scale_roi_align`` with respect to its levels,
+    by an explicit scatter of the same sample rule (``index_add_``).
+
+    grad_out (B, N, S, S, C); level_shapes the (B, H_l, W_l, C) of each
+    level. Returns one float32 (B, H_l, W_l, C) gradient per level. Invalid
+    rois and samples outside their level add nothing.
+    """
+    b, n = rois.shape[:2]
+    c = level_shapes[0][-1]
+    dev = rois.device
+    pyr = _Pyramid(level_shapes, spatial_scales, dev)
+    grad_flat = torch.zeros((b * pyr.p_total, c), dtype=torch.float32, device=dev)
+    g_all = grad_out.reshape(b * n, output_size, 1, output_size, 1, c).float()
+    for sl, corners in _chunks(pyr, rois, valid, levels, output_size, sampling_ratio,
+                               chunk_size):
+        # each sample gets its bin's gradient over the sr x sr sub-bin mean
+        g = g_all[sl].expand(-1, -1, sampling_ratio, -1, sampling_ratio, -1)
+        g = g.reshape(-1, output_size * sampling_ratio, output_size * sampling_ratio, c)
+        g = g / float(sampling_ratio * sampling_ratio)
+        for rows, w in corners:
+            grad_flat.index_add_(0, rows.reshape(-1), (w[..., None] * g).reshape(-1, c))
+    grads, start = [], 0
+    per_image = grad_flat.reshape(b, pyr.p_total, c)
+    for shape in level_shapes:
+        size = shape[1] * shape[2]
+        grads.append(per_image[:, start:start + size].reshape(tuple(shape)))
+        start += size
+    return grads

@@ -1,4 +1,5 @@
-"""The Hopper RoIAlign kernel against its plain PyTorch version, on the card.
+"""The Hopper RoIAlign kernels (K1 inference forward, K2 training forward,
+K3 training backward) against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with an H100 and ``nvcc`` run them with ``python -m pytest tests/test_torch_cuda.py``.
@@ -10,7 +11,9 @@ import pytest
 import torch
 
 from cald_tpu_torch.ops import roi_align as plain
-from cald_tpu_torch.ops.roi_align_cuda import RoIAlignKernel
+from cald_tpu_torch.ops.roi_align_cuda import (
+    RoIAlignBackward, RoIAlignFunction, RoIAlignKernel, RoIAlignTrainForward,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +80,89 @@ def test_launch_count_and_bad_input(kernel):
     with pytest.raises(TypeError):
         kernel([f.half() for f in feats], rois, valid, spatial_scales=SCALES)
     assert kernel.launches == before + 1
+
+
+@pytest.fixture(scope="module")
+def train_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return RoIAlignTrainForward(), RoIAlignBackward()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [256, 96, 33])
+def test_train_kernels_match_plain(train_kernels, c, dtype):
+    """K2 (float32 output) and K3 (float32 level gradients) against the plain
+    forward and backward on the f32 features. f32: atol 1e-4 (sums in
+    another order; K3's atomics add in an order that changes from run to
+    run). bf16 features: forward atol 5e-2, gradient atol 5e-2 + 1e-2
+    relative (the gradient is f32 and rounded once to bf16)."""
+    fwd, bwd = train_kernels
+    feats, rois, valid = _inputs(c)
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    cot = torch.randn((*rois.shape[:2], 7, 7, c), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    want = plain.multi_scale_roi_align(feats, rois, spatial_scales=SCALES, valid=valid,
+                                       out_dtype=torch.float32)
+    want_g = plain.multi_scale_roi_align_backward(cot, rois, valid, levels,
+                                                  [f.shape for f in feats],
+                                                  spatial_scales=SCALES)
+    kf = [f.to(dtype) for f in feats]
+    got = fwd(kf, rois, valid, levels, spatial_scales=SCALES)
+    got_g = bwd(cot, rois, valid, levels, [f.shape for f in kf], spatial_scales=SCALES)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and all(g.dtype == torch.float32 for g in got_g)
+    assert got[~valid].abs().max().item() == 0.0
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() < 1e-4
+        for g, w in zip(got_g, want_g):
+            assert (g - w).abs().max().item() < 1e-4
+    else:
+        assert (got - want).abs().max().item() < 5e-2
+        for g, w in zip(got_g, want_g):
+            g = g.to(dtype).float()
+            assert ((g - w).abs() <= 5e-2 + 1e-2 * w.abs()).all()
+
+
+def test_train_kernels_invalid_rois_add_nothing(train_kernels):
+    """A cotangent only on invalid rois leaves every gradient exactly 0."""
+    _, bwd = train_kernels
+    feats, rois, valid = _inputs(64)
+    rois = torch.where(valid[..., None], rois, rois.new_tensor([8.0, 8.0, 90.0, 70.0]))
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    cot = torch.ones((*rois.shape[:2], 7, 7, 64), device="cuda")
+    cot = cot * (~valid)[..., None, None, None]
+    grads = bwd(cot, rois, valid, levels, [f.shape for f in feats], spatial_scales=SCALES)
+    assert all(g.abs().max().item() == 0.0 for g in grads)
+
+
+def test_train_launch_counts_and_bad_input(train_kernels):
+    """One launch each per forward/backward through RoIAlignFunction; a CUDA
+    input the kernels refuse raises and launches nothing."""
+    fwd, bwd = train_kernels
+    feats, rois, valid = _inputs(32)
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    from cald_tpu_torch.ops import roi_align_cuda
+
+    before = (roi_align_cuda.roi_align_train_fwd_kernel.launches,
+              roi_align_cuda.roi_align_bwd_kernel.launches)
+    leaves = [f.clone().requires_grad_() for f in feats]
+    out = RoIAlignFunction.apply(rois, valid, tuple(SCALES), 7, 2, *leaves)
+    out.sum().backward()
+    assert (roi_align_cuda.roi_align_train_fwd_kernel.launches,
+            roi_align_cuda.roi_align_bwd_kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert all(f.grad is not None and f.grad.dtype == torch.float32 for f in leaves)
+
+    n_fwd, n_bwd = fwd.launches, bwd.launches
+    with pytest.raises(ValueError):
+        fwd([f.permute(0, 2, 1, 3) for f in feats], rois, valid, levels, spatial_scales=SCALES)
+    with pytest.raises(TypeError):
+        fwd([f.half() for f in feats], rois, valid, levels, spatial_scales=SCALES)
+    with pytest.raises(ValueError):
+        fwd(feats, rois, valid, levels.long(), spatial_scales=SCALES)
+    with pytest.raises(ValueError):
+        bwd(torch.zeros((*rois.shape[:2], 7, 7, 32), device="cuda").bfloat16(), rois, valid,
+            levels, [f.shape for f in feats], spatial_scales=SCALES)
+    assert (fwd.launches, bwd.launches) == (n_fwd, n_bwd)

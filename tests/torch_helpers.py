@@ -27,6 +27,10 @@ CANVAS = (96, 128)
 TINY = dict(num_classes=4, backbone="tiny", compute_dtype="float32",
             rpn_pre_nms_top_n_test=200, rpn_post_nms_top_n_test=64,
             detections_per_img=20, representation_size=64)
+# the tiny training counts of the JAX package's CLI (cald_tpu.cli, build_model
+# with tiny=True)
+TINY_TRAIN = dict(rpn_pre_nms_top_n_train=128, rpn_post_nms_top_n_train=64,
+                  rpn_batch_size_per_image=32, box_batch_size_per_image=32)
 
 
 def tiny_images(seed: int = 7):
@@ -61,16 +65,18 @@ def _amplify(params, frozen, rng):
     return p, jax.tree_util.tree_map_with_path(perturb, frozen)
 
 
-def tiny_models(seed: int = 0):
-    """(jax_model, variables, torch_model) sharing one seeded set of weights."""
-    jmodel = JaxFasterRCNN(JaxConfig(norm="frozen", **TINY))
+def tiny_models(seed: int = 0, **overrides):
+    """(jax_model, variables, torch_model) sharing one seeded set of weights;
+    ``overrides`` change both configurations alike."""
+    cfg = {**TINY, **overrides}
+    jmodel = JaxFasterRCNN(JaxConfig(norm="frozen", **cfg))
     images, valid_hw = tiny_images()
     variables = jax.jit(jmodel.init)(jax.random.key(seed), jnp.asarray(images),
                                      jnp.asarray(valid_hw))
     params, frozen = _amplify(variables["params"], variables["frozen"],
                               np.random.default_rng(seed))
     variables = {"params": params, "frozen": frozen}
-    tmodel = FasterRCNN(FasterRCNNConfig(**TINY))
+    tmodel = FasterRCNN(FasterRCNNConfig(**cfg))
     tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
     return jmodel, variables, tmodel.eval()
 
