@@ -7,7 +7,9 @@ backbone tensors are NCHW in ``torch.channels_last`` format; the pyramid
 handed to RoIAlign is NHWC. Inference RoIAlign goes through
 ``ops.roi_align_cuda.roi_align_kernel`` (K1), training RoIAlign through
 ``RoIAlignFunction`` (K2 forward, K3 backward): the Hopper kernels for CUDA
-tensors, their plain versions for CPU tensors.
+tensors, their plain versions for CPU tensors. ``detect`` lets the backbone
+run its opt-in fused bottlenecks (K5/K6, ``CALD_TPU_PALLAS_BNECK``);
+``loss`` never does.
 """
 
 from __future__ import annotations
@@ -105,8 +107,11 @@ class FasterRCNN(nn.Module):
         self.register_buffer("pixel_mean", torch.from_numpy(IMAGENET_MEAN), persistent=False)
         self.register_buffer("pixel_std", torch.from_numpy(IMAGENET_STD), persistent=False)
 
-    def features(self, images: torch.Tensor, valid_hw: torch.Tensor) -> list[torch.Tensor]:
-        """FPN pyramid, NCHW channels-last tensors, finest first (P2..P6)."""
+    def features(self, images: torch.Tensor, valid_hw: torch.Tensor, *,
+                 allow_fused: bool = False) -> list[torch.Tensor]:
+        """FPN pyramid, NCHW channels-last tensors, finest first (P2..P6).
+        ``allow_fused`` lets the backbone's opt-in fused bottlenecks run
+        (inference only: they have no backward)."""
         x = (images / 255.0 - self.pixel_mean) / self.pixel_std
         if self.dtype is not None:
             x = x.to(self.dtype)
@@ -114,7 +119,7 @@ class FasterRCNN(nn.Module):
         # normalizes each image first and zero-pads the batch after
         x = x * _valid_mask(images.shape[1], images.shape[2], valid_hw, x.dtype)
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        feats = self.backbone(x)
+        feats = self.backbone(x, allow_fused=allow_fused)
         return self.fpn([feats[k] for k in ("c2", "c3", "c4", "c5")])
 
     def _anchors(self, pyramid, device):
@@ -186,7 +191,7 @@ class FasterRCNN(nn.Module):
         """images (B, H, W, 3) raw pixels; valid_hw (B, 2) int. Returns
         fixed-slot Detections in the canvas (resized-image) coordinates."""
         cfg = self.cfg
-        pyramid = self.features(images, valid_hw)
+        pyramid = self.features(images, valid_hw, allow_fused=True)
         objectness, deltas = self.rpn_head(pyramid)
         anchors, counts = self._anchors(pyramid, images.device)
         props, _, pvalid = select_proposals(

@@ -1,13 +1,26 @@
-"""ResNet backbone (port of the plain path of ``cald_tpu/models/resnet.py``).
+"""ResNet backbone (port of ``cald_tpu/models/resnet.py``).
 
 Tensors are NCHW; the detector passes them in ``torch.channels_last`` memory
 format. Module names follow the JAX package (``layer{stage}_{block}``,
 ``conv1..3``, ``downsample_conv``), with the Flax auto-named norms given
 torchvision's names (``bn1..3``, ``downsample_bn``).
+
+The fused inference configuration is opt-in, as in the JAX package:
+``forward(x, allow_fused=True)`` with ``CALD_TPU_PALLAS_BNECK`` set runs
+each stage's stride-1 identity suffix with every frozen norm folded into its
+conv, through ``fused_block_kernel`` (K5) once per block (``"1"`` or any
+other non-empty value) or ``fused_stage_kernel`` (K6) per group of chained
+blocks (``"stage"``); block 0 of each stage runs the plain path. The Hopper
+kernels run for CUDA tensors and the plain versions for CPU tensors.
+Documented difference: the JAX package fuses only on a TPU backend and
+falls back to XLA where Mosaic finds no tiling with ``TW % 8 == 0`` (for
+example a stage 4 pixels wide); the port fuses every suffix, whatever its
+shape, which computes the same function.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -15,6 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cald_tpu_torch.models.layers import Conv, FrozenBatchNorm
+from cald_tpu_torch.ops.bottleneck import fold_frozen
+from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
 
 
 class Bottleneck(nn.Module):
@@ -48,6 +63,17 @@ class Bottleneck(nn.Module):
             identity = self.downsample_bn(self.downsample_conv(x))
         return F.relu(y + identity)
 
+    def folded(self) -> tuple:
+        """The folded tuple of a stride-1 identity block: (w1 (P, C), b1,
+        w2 (P, P, 3, 3), b2, w3 (C, P), b3), float32, each frozen norm folded
+        into its conv (``ops/bottleneck.py``)."""
+        if self.downsample_conv is not None or self.conv2.stride != 1:
+            raise ValueError("folded needs a stride-1 identity block")
+        w1, b1 = fold_frozen(self.conv1.weight[:, :, 0, 0], *self.bn1.fold())
+        w2, b2 = fold_frozen(self.conv2.weight, *self.bn2.fold())
+        w3, b3 = fold_frozen(self.conv3.weight[:, :, 0, 0], *self.bn3.fold())
+        return w1, b1, w2, b2, w3, b3
+
 
 class ResNetBackbone(nn.Module):
     """Returns the C2..C5 maps as a dict {'c2': ..., 'c5': ...} (NCHW).
@@ -75,12 +101,29 @@ class ResNetBackbone(nn.Module):
             self.stages.append(names)
         self.out_channels = tuple(width * 2 ** s * 4 for s in range(len(blocks_per_stage)))
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    @staticmethod
+    def _fuse_gate() -> str:
+        """``CALD_TPU_PALLAS_BNECK``: "" (the default) off, "stage" for K6,
+        any other value for K5."""
+        return os.environ.get("CALD_TPU_PALLAS_BNECK", "")
+
+    def forward(self, x: torch.Tensor, *, allow_fused: bool = False) -> dict[str, torch.Tensor]:
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.max_pool2d(y, 3, stride=2, padding=1)
+        fuse = self._fuse_gate() if allow_fused else ""
         feats = {}
         for stage, names in enumerate(self.stages):
-            for name in names:
-                y = getattr(self, name)(y)
+            blocks = [getattr(self, name) for name in names]
+            y = blocks[0](y)
+            if fuse and len(blocks) > 1:
+                folded = [blk.folded() for blk in blocks[1:]]
+                if fuse == "stage":
+                    y = fused_stage_kernel(y, folded)
+                else:
+                    for f in folded:
+                        y = fused_block_kernel(y, f)
+            else:
+                for blk in blocks[1:]:
+                    y = blk(y)
             feats[f"c{stage + 2}"] = y
         return feats

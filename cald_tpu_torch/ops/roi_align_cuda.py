@@ -12,9 +12,8 @@
 in ``models/roi_heads.py::pool_box_features``). Each wrapper chooses by the
 device of the tensors it is given: for CPU tensors it runs the plain version
 (``ops/roi_align.py``); for CUDA tensors it launches its kernel or raises. The kernels are compiled with
-``nvcc`` for ``sm_90a`` at first launch into ``cald_tpu_torch/build/`` (keyed
-by a hash of the source) and bound with ``ctypes``; importing this module
-builds nothing.
+``nvcc`` for ``sm_90a`` at first launch (``ops/cuda_build.py``); importing
+this module builds nothing.
 
 The forwards' output equals the TPU kernels' (K1's pooled slots gathered back
 by ``slot_of_roi``): (B, N, 7, 7, C) in proposal order, with zeros for invalid
@@ -24,46 +23,15 @@ rois.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Sequence
 
 import torch
 
 from cald_tpu_torch.ops import roi_align as plain
+from cald_tpu_torch.ops.cuda_build import CSRC, KernelEntry
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "roi_align.cu"
-BUILD_DIR = _PKG / "build"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def build_library() -> Path:
-    """Compile the kernel source into a shared library for sm_90a unless a
-    build of the same source exists. Returns the library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libcald_roi_align_{digest}.so"
-    if lib.exists():
-        return lib
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)],
-                       check=True)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
 
 
 def _host_levels(shapes: Sequence[tuple], spatial_scales: Sequence[float], ptrs):
@@ -97,36 +65,10 @@ def _check_levels(feats, rois, spatial_scales, dtypes=_DTYPES):
                              "tensors of one dtype on the rois' device")
 
 
-class _Entry:
-    """One C entry point of the kernel library: binding and launch count.
+class _Entry(KernelEntry):
+    """An entry point of ``csrc/roi_align.cu``."""
 
-    ``launches`` is incremented once per kernel launch and nowhere else, so a
-    run can show that its main path went through the kernel.
-    """
-
-    symbol = ""
-    argtypes: list = []
-
-    def __init__(self):
-        self.launches = 0
-        self._lib = None
-        self._fn = None
-
-    def load(self):
-        """Build (if needed) and bind the kernel; returns the C entry point."""
-        if self._fn is None:
-            self._lib = ctypes.CDLL(str(build_library()))
-            fn = getattr(self._lib, self.symbol)
-            fn.restype = ctypes.c_int
-            fn.argtypes = self.argtypes
-            self._fn = fn
-        return self._fn
-
-    def _launch(self, *args):
-        err = self.load()(*args)
-        if err != 0:
-            raise RuntimeError(f"{self.symbol}: kernel launch failed: CUDA error {err}")
-        self.launches += 1
+    source = CSRC / "roi_align.cu"
 
     @staticmethod
     def _device(rois: torch.Tensor) -> str:

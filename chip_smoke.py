@@ -6,8 +6,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
   1. card: ``nvidia-smi`` name and power limit, torch version, device name;
      exits non-zero at once when CUDA is unavailable (there is no CPU path);
-  2. build: compiles the Hopper RoIAlign kernels from ``cald_tpu_torch/csrc``
-     (one source, three entry points: K1, K2, K3);
+  2. build: compiles the Hopper kernels from ``cald_tpu_torch/csrc``, one
+     ``nvcc`` per source, started together: ``roi_align.cu`` (K1, K2, K3)
+     and ``bottleneck.cu`` (K5, K6);
   3. kernel: K1 against its plain PyTorch version at the scoring path's
      shapes (B=8, N=1000, P2..P5 of a 640x1024 canvas, C=256), f32 with TF32
      off (atol 1e-4) and bf16 against the f32 plain version (atol 5e-2);
@@ -17,8 +18,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      canvas, 600x1000 valid) through make_cald_score_fn -> score_pool ->
      cald_select with budget 4; checks detections, consistency and the
      kernels' launch counts (K1 2 per score call: the base detect and the
-     batched aug detect; K2 and K3 none); the f32 pyramid on the GPU is held
-     against the CPU path on a small input;
+     batched aug detect; K2, K3, K5 and K6 none); the f32 pyramid on the GPU
+     is held against the CPU path on a small input;
   5. time: 5 warm score calls, images/s beside the card's name and power limit;
   6. training kernels: K2 (training forward, f32 output) and K3 (training
      backward) against their plain versions at the training path's shapes
@@ -38,7 +39,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
      unchanged and trainable ones changed; then, on one fixed batch with
      fixed draws at a constant lr of 5e-5, that the loss after 5 steps is
      below the first step's; then times 5 warm steps (ms per step, images/s
-     beside the card's name and power limit).
+     beside the card's name and power limit);
+  8. bottleneck kernels: K5 (one fused block per launch, chained over the
+     suffix) and K6 (the suffix through its group plan) against the plain
+     folded chain at R50's four stride-1 suffixes on the canvas, B=8, seeded
+     folded weights: f32 with TF32 off (max abs error <= 1e-4 of the
+     output's largest magnitude) and bf16 against the f32 plain version
+     (mean relative error < 0.03 overall and on the border); one block with
+     b1 = 1.0 (border mean < 0.02, max < 0.15 of the mean magnitude);
+     kernel and plain times per stage and K6's plan;
+  9. fused scoring path: a fresh R50-FPN as in phase 4 (gate off while its
+     norms are calibrated), then with CALD_TPU_PALLAS_BNECK "1" and "stage":
+     the pool of phase 4 scored and checked as there, launches per score
+     call K1 2 and K5 24 ("1") or K6 twice its plan's groups ("stage"); the
+     bf16 pyramid fused against unfused (mean relative error < 0.05, on a
+     copy with the JAX test's norm statistics); the f32 fused pyramid on the
+     GPU against the CPU's plain fused path (1e-3); 5 warm score calls per
+     mode; backbone+FPN at B=32 four ways (unfused, plain folded chain, K5,
+     K6) in turns.
 
 The line before the last is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. JAX is not imported.
@@ -46,12 +64,15 @@ The line before the last is a JSON object describing each kernel; the last is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -357,36 +378,39 @@ def build_model(device, backbone: str = "resnet50", compute_dtype: str = "bfloat
     return model
 
 
-def reference_check(model, device) -> float:
+def reference_check(model, device, allow_fused: bool = False, label: str = "reference") -> float:
     """The f32 pyramid on the GPU against the CPU path of the same weights
-    on a small input (TF32 off); returns the max relative error."""
+    on a small input (TF32 off); returns the max relative error. With
+    ``allow_fused`` and the gate set, the GPU runs the fused kernels and the
+    CPU their plain versions."""
     import torch
 
-    from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
+    from cald_tpu_torch.models.faster_rcnn import FasterRCNN
 
-    f32 = FasterRCNN(FasterRCNNConfig(num_classes=NUM_CLASSES, compute_dtype="float32"))
+    f32 = FasterRCNN(dataclasses.replace(model.cfg, compute_dtype="float32"))
     f32.load_state_dict(model.state_dict())
     f32.eval()
     images = torch.from_numpy(make_pool(BATCH, seed=SEED + 2)[0].images[:2, :128, :192].copy())
     hw = torch.tensor([[128, 192], [100, 150]], dtype=torch.int32)
     with torch.inference_mode():
-        want = f32.features(images, hw)
+        want = f32.features(images, hw, allow_fused=allow_fused)
     f32.to(device)
     with torch.inference_mode():
-        got = f32.features(images.to(device), hw.to(device))
+        got = f32.features(images.to(device), hw.to(device), allow_fused=allow_fused)
     err = max(((g.cpu() - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
-    print(f"reference: f32 pyramid GPU vs CPU on 2x128x192, max relative error {err:.3e} "
+    print(f"{label}: f32 pyramid GPU vs CPU on 2x128x192, max relative error {err:.3e} "
           f"(limit 1e-3)")
     if not err <= 1e-3:
         raise AssertionError("GPU pyramid disagrees with the CPU path")
     return err
 
 
-def main_path(model, device, kernels, n_batches: int = N_BATCHES):
+def main_path(model, device, kernels: dict, expect: dict, n_batches: int = N_BATCHES,
+              label: str = "main path"):
     """Score a pool and select, checking the results; returns (score_fn,
-    pool, K1 launches during the scoring). ``kernels`` are the three kernel
-    wrappers (K1, K2, K3); every count is set to 0 just before the scoring
-    and read just after."""
+    pool, launches). ``kernels`` maps each kernel's name to its wrapper and
+    ``expect`` gives its launches per score call (0 where absent); every
+    count is set to 0 just before the scoring and read just after."""
     import torch
 
     from cald_tpu_torch.strategies.cald import (
@@ -408,25 +432,24 @@ def main_path(model, device, kernels, n_batches: int = N_BATCHES):
     gen = torch.Generator(device=device).manual_seed(SEED)
     model.detect = counting_detect          # instance attribute over the method
     try:
-        for k in kernels:
+        for k in kernels.values():
             k.launches = 0
         consistency, cls_corrs = score_pool(score_fn, pool, list(range(BATCH * n_batches)),
                                             gen)
-        launches, train_launches = kernels[0].launches, [k.launches for k in kernels[1:]]
+        launches = {name: k.launches for name, k in kernels.items()}
     finally:
         del model.detect
 
+    want = {name: expect.get(name, 0) * n_batches for name in kernels}
     labeled_mean = np.random.default_rng(SEED).uniform(0, 2, NUM_CLASSES - 1)
     selected = cald_select(consistency, cls_corrs, labeled_mean, BUDGET, cfg)
     base_dets, aug_dets = float(np.mean(counts["base"])), float(np.mean(counts["aug"]))
-    print(f"main path: {n_batches} batches x {BATCH} images, canvas {CANVAS}, valid "
+    print(f"{label}: {n_batches} batches x {BATCH} images, canvas {CANVAS}, valid "
           f"{VALID_HW}: mean valid detections base {base_dets:.2f}, aug {aug_dets:.2f}")
-    print(f"main path: consistency {np.array2string(consistency, precision=4)}")
-    print(f"main path: selected {selected.tolist()}; roi_align launches {launches} "
-          f"(expected {2 * n_batches}), training kernels {train_launches} (expected 0)")
-    if launches != 2 * n_batches or any(train_launches):
-        raise AssertionError("the main path did not launch the roi_align kernel twice "
-                             "per score call, and only it")
+    print(f"{label}: consistency {np.array2string(consistency, precision=4)}")
+    print(f"{label}: selected {selected.tolist()}; launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{label}: the kernels' launch counts are not the expected ones")
     if not (base_dets > 0 and aug_dets > 0):
         raise AssertionError("no detections on the main path")
     if not (np.isfinite(consistency).all() and consistency.min() >= 0.0
@@ -524,6 +547,219 @@ def train_path(device, kernels, backbone: str = "resnet50") -> dict:
             "losses": per_step[-1]}
 
 
+# R50's stride-1 suffixes on the canvas: (stage, H, W, C, P, blocks)
+R50_SUFFIXES = [("layer1", 160, 256, 256, 64, 2), ("layer2", 80, 128, 512, 128, 3),
+                ("layer3", 40, 64, 1024, 256, 5), ("layer4", 20, 32, 2048, 512, 2)]
+
+
+def folded_blocks(c: int, p: int, n: int, device, seed: int, b1=None):
+    """Seeded folded blocks in the port's layouts (kaiming-scaled, so the
+    activations stay of order 1 through a chain)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mk = lambda std, *s: torch.from_numpy(rng.normal(0, std, s).astype(np.float32)).to(device)
+    return [(mk(c ** -0.5, p, c),
+             mk(0.1, p) if b1 is None else torch.full((p,), b1, device=device),
+             mk((9 * p) ** -0.5, p, p, 3, 3), mk(0.1, p), mk(0.5 * p ** -0.5, c, p),
+             mk(0.1, c)) for _ in range(n)]
+
+
+def _border(t):
+    import torch
+
+    return torch.cat([t[:, :, 0].flatten(), t[:, :, -1].flatten(), t[:, :, :, 0].flatten(),
+                      t[:, :, :, -1].flatten()])
+
+
+def bottleneck_kernel_phase(device) -> list[dict]:
+    """K5 and K6 against their plain versions at R50's four suffixes, B=8
+    (phase 8)."""
+    import torch
+
+    from cald_tpu_torch.ops import bottleneck as plain
+    from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
+
+    def k5_chain(x, blocks):
+        for b in blocks:
+            x = fused_block_kernel(x, b)
+        return x
+
+    rows = {"K5": [], "K6": []}
+    for stage, h, w, c, p, n in R50_SUFFIXES:
+        rng = np.random.default_rng(SEED + h)
+        x = torch.from_numpy(np.abs(rng.normal(0, 1, (BATCH, c, h, w))).astype(np.float32))
+        x = x.to(device).contiguous(memory_format=torch.channels_last)
+        blocks = folded_blocks(c, p, n, device, SEED + h)
+        want = plain.fused_stage(x, blocks)
+        xb = x.bfloat16()
+        scale, top = want.abs().mean().item(), want.abs().max().item()
+        plain_ms = cuda_ms(lambda: plain.fused_stage(xb, blocks), 3)
+        plan = plain.stage_plan(h, w, c, p, n, 2)
+        for name, fn in (("K5", k5_chain), ("K6", fused_stage_kernel)):
+            got32 = fn(x, blocks)
+            gotb = fn(xb, blocks).float()
+            torch.cuda.synchronize()
+            err32 = (got32 - want).abs().max().item()
+            d = gotb - want
+            row = {"stage": stage, "f32_max_abs_err": err32, "f32_rel": err32 / top,
+                   "bf16_max_abs_err": d.abs().max().item(),
+                   "bf16_mean_rel": d.abs().mean().item() / scale,
+                   "bf16_border_mean_rel": _border(d).abs().mean().item() / scale,
+                   "ms": cuda_ms(lambda: fn(xb, blocks), 10), "plain_ms": plain_ms}
+            rows[name].append(row)
+            print(f"bottleneck {name} {stage} B={BATCH} {h}x{w} C={c} P={p} blocks={n}"
+                  f"{' plan (g, th, tw) ' + str(plan) if name == 'K6' else ''}: f32 max_abs_err "
+                  f"{err32:.3e} ({row['f32_rel']:.2e} of max {top:.3g}, limit 1e-4); bf16 "
+                  f"mean rel {row['bf16_mean_rel']:.4f}, border {row['bf16_border_mean_rel']:.4f} "
+                  f"(limit 0.03); bf16 {row['ms']:.4f} ms, plain {plain_ms:.4f} ms")
+            if not (row["f32_rel"] <= 1e-4 and row["bf16_mean_rel"] < 0.03
+                    and row["bf16_border_mean_rel"] < 0.03):
+                raise AssertionError(f"bottleneck {name} disagrees with its plain version at {stage}")
+        del x, xb, want, got32, gotb, d
+
+    # the halo-bias case: b1 = 1.0 must not leak relu(b1) into the border
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(np.abs(rng.normal(0, 1, (1, 256, 16, 32))).astype(np.float32))
+    x = x.to(device).contiguous(memory_format=torch.channels_last)
+    blk = folded_blocks(256, 64, 1, device, SEED, b1=1.0)[0]
+    want = plain.fused_block(x, blk)
+    scale = want.abs().mean().item()
+    for name, got in (("K5", fused_block_kernel(x.bfloat16(), blk)),
+                      ("K6", fused_stage_kernel(x.bfloat16(), [blk]))):
+        border = _border(got.float() - want).abs()
+        mean, worst = border.mean().item() / scale, border.max().item() / scale
+        print(f"bottleneck {name} b1=1.0 border: mean {mean:.4f} (limit 0.02), max {worst:.4f} "
+              f"(limit 0.15)")
+        if not (mean < 0.02 and worst < 0.15):
+            raise AssertionError(f"bottleneck {name}: the zero halo leaks relu(b1)")
+        rows[name].append({"stage": "b1=1.0", "border_mean_rel": mean, "border_max_rel": worst})
+
+    src = "cald_tpu_torch/csrc/bottleneck.cu"
+    out = []
+    for name, kname, line in (("K5", "bottleneck_block", 59), ("K6", "bottleneck_stage", 218)):
+        st = [r for r in rows[name] if "ms" in r]
+        out.append({"name": kname, "route": "cuda", "source": src,
+                    "replaces": f"cald_tpu/ops/pallas_bottleneck.py:{line}",
+                    "max_abs_err": max(r["bf16_max_abs_err"] for r in st),
+                    "max_abs_err_f32": max(r["f32_max_abs_err"] for r in st),
+                    "bf16_mean_rel": max(r["bf16_mean_rel"] for r in st),
+                    "ms": sum(r["ms"] for r in st), "plain_ms": sum(r["plain_ms"] for r in st),
+                    "per_stage": rows[name]})
+    return out
+
+
+def fused_counts() -> dict:
+    """K5 and K6 launches per detect of R50 on the canvas in bf16: one K5
+    per suffix block; one K6 per group of each suffix's plan."""
+    from cald_tpu_torch.ops.bottleneck import stage_plan
+
+    return {"bottleneck_block": sum(n for *_, n in R50_SUFFIXES),
+            "bottleneck_stage": sum(len(stage_plan(h, w, c, p, n, 2))
+                                    for _, h, w, c, p, n in R50_SUFFIXES)}
+
+
+def fused_path(device, kernels: dict, card: str) -> dict:
+    """The fused scoring path (phase 9), CALD_TPU_PALLAS_BNECK = "1" then
+    "stage" on a detector built with the gate off; returns each mode's
+    launches and times."""
+    from unittest import mock
+
+    import torch
+
+    from cald_tpu_torch.augment.suite import generator_draw
+    from cald_tpu_torch.models import resnet
+    from cald_tpu_torch.models.faster_rcnn import FasterRCNN
+    from cald_tpu_torch.models.layers import FrozenBatchNorm
+    from cald_tpu_torch.ops import bottleneck as plain
+
+    model = build_model(device)
+    per_detect = fused_counts()
+    batch = make_pool(BATCH, seed=SEED + 4)[0]
+    images = torch.from_numpy(batch.images).to(device)
+    valid_hw = torch.from_numpy(batch.valid_hw).to(device)
+    # The calibrated random R50 amplifies rounding: its bf16 pyramid is far
+    # from its own f32 pyramid, fused or not, so the fused-vs-unfused bound
+    # is held on a copy with the norm statistics of the JAX package's test
+    # (tests/test_pallas_bottleneck.py: every statistic normal(1, 0.1)), and
+    # the smoke model's own errors against f32 are printed beside it.
+    cond = FasterRCNN(model.cfg)
+    cond.load_state_dict(model.state_dict())
+    cond.eval().to(device)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    with torch.no_grad():
+        for m in cond.modules():
+            if isinstance(m, FrozenBatchNorm):
+                for buf in (m.scale, m.bias, m.mean, m.var):
+                    buf.copy_(torch.normal(1.0, 0.1, buf.shape, generator=gen))
+    f32 = FasterRCNN(dataclasses.replace(model.cfg, compute_dtype="float32"))
+    f32.load_state_dict(model.state_dict())
+    f32.eval().to(device)
+    rel = lambda got, want: [((g.float() - w.float()).abs().mean() / w.float().abs().mean()).item()
+                             for g, w in zip(got, want)]
+    with torch.inference_mode():
+        unfused, unfused_cond = model.features(images, valid_hw), cond.features(images, valid_hw)
+        ref32 = f32.features(images, valid_hw)
+    del f32
+    result = {}
+    for mode, kname in (("1", "bottleneck_block"), ("stage", "bottleneck_stage")):
+        os.environ["CALD_TPU_PALLAS_BNECK"] = mode
+        label = f"fused path {mode!r}"
+        score_fn, pool, launches = main_path(
+            model, device, kernels, {"roi_align": 2, kname: 2 * per_detect[kname]},
+            label=label)
+        with torch.inference_mode():
+            fused = model.features(images, valid_hw, allow_fused=True)
+            fused_cond = cond.features(images, valid_hw, allow_fused=True)
+        err = rel(fused_cond, unfused_cond)
+        print(f"{label}: bf16 pyramid fused vs unfused (JAX-test norm statistics), mean "
+              f"relative error per level {[f'{r:.4f}' for r in err]} (limit 0.05); smoke model "
+              f"against its f32 pyramid: fused {[f'{r:.3f}' for r in rel(fused, ref32)]}, "
+              f"unfused {[f'{r:.3f}' for r in rel(unfused, ref32)]}")
+        if not max(err) < 0.05:
+            raise AssertionError(f"{label}: the fused pyramid disagrees with the unfused one")
+        reference_check(model, device, allow_fused=True, label=label)
+        draw = generator_draw(torch.Generator(device=device).manual_seed(SEED + 3))
+        reps = 5
+        score_fn(images, valid_hw, draw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            score_fn(images, valid_hw, draw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"{label} time: {reps} warm score calls of B={BATCH}: {dt / reps * 1e3:.1f} "
+              f"ms/call, {reps * BATCH / dt:.2f} images/s on {card}")
+        result[mode] = {"launches": launches[kname], "ms_per_call": dt / reps * 1e3,
+                        "images_per_s": reps * BATCH / dt}
+        del score_fn, pool
+
+    # backbone + FPN alone at B=32, four ways, in turns (ABCD DCBA)
+    big = make_pool(4 * BATCH, seed=SEED + 5, batch=4 * BATCH)[0]
+    im32 = torch.from_numpy(big.images).to(device)
+    hw32 = torch.from_numpy(big.valid_hw).to(device)
+
+    def backbone_ms(mode: str, plain_chain: bool = False) -> float:
+        os.environ["CALD_TPU_PALLAS_BNECK"] = mode
+        with mock.patch.object(resnet, "fused_stage_kernel",
+                               plain.fused_stage if plain_chain else resnet.fused_stage_kernel):
+            with torch.inference_mode():
+                return cuda_ms(lambda: model.features(im32, hw32, allow_fused=True), 5)
+
+    ways = {"unfused": ("", False), "plain folded chain": ("stage", True), "K5": ("1", False),
+            "K6": ("stage", False)}
+    times = {k: [] for k in ways}
+    for name in [*ways, *reversed(ways)]:
+        times[name].append(backbone_ms(*ways[name]))
+    os.environ.pop("CALD_TPU_PALLAS_BNECK", None)
+    print(f"fused backbone+FPN at B={4 * BATCH} (CUDA events, mean of 5, two turns): " + "; ".join(
+        f"{k} {v[0]:.2f} / {v[1]:.2f} ms" for k, v in times.items()) + f" on {card}")
+    result["backbone_ms"] = times
+    del model, cond
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -531,12 +767,14 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; there is no CPU path", file=sys.stderr)
         return 2
     from cald_tpu_torch.augment.suite import generator_draw
+    from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
     from cald_tpu_torch.ops.roi_align_cuda import (
         roi_align_bwd_kernel, roi_align_kernel, roi_align_train_fwd_kernel,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop("CALD_TPU_PALLAS_BNECK", None)       # phase 9 sets the gate itself
     device = torch.device("cuda", 0)
     card = card_line()
     print(card)
@@ -544,17 +782,25 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
     kernels = (roi_align_kernel, roi_align_train_fwd_kernel, roi_align_bwd_kernel)
+    all_kernels = {"roi_align": roi_align_kernel, "roi_align_train_fwd": roi_align_train_fwd_kernel,
+                   "roi_align_bwd": roi_align_bwd_kernel, "bottleneck_block": fused_block_kernel,
+                   "bottleneck_stage": fused_stage_kernel}
+    # one nvcc per source, started together
     t0 = time.perf_counter()
-    for k in kernels:
+    with ThreadPoolExecutor(2) as ex:
+        built = list(ex.map(lambda k: (k.load(), time.perf_counter() - t0),
+                              (roi_align_kernel, fused_block_kernel)))
+    for k in all_kernels.values():
         k.load()
-    print(f"build: roi_align kernels (K1, K2, K3) ready in {time.perf_counter() - t0:.2f} s")
+    print(f"build: roi_align kernels (K1, K2, K3) ready in {built[0][1]:.2f} s, bottleneck "
+          f"kernels (K5, K6) in {built[1][1]:.2f} s")
 
     kernel = kernel_phase(device)
 
     model = build_model(device)
     reference_check(model, device)
-    score_fn, pool, launches = main_path(model, device, kernels)
-    kernel["launches"] = launches
+    score_fn, pool, launches = main_path(model, device, all_kernels, {"roi_align": 2})
+    kernel["launches"] = launches["roi_align"]
 
     images = torch.from_numpy(pool[0].images).to(device)
     valid_hw = torch.from_numpy(pool[0].valid_hw).to(device)
@@ -579,7 +825,13 @@ def main() -> int:
     print(f"train time: {TRAIN_BATCH} images per step, 5 warm steps: {train['step_ms']:.1f} "
           f"ms/step, {train['images_per_s']:.2f} images/s on {card}")
 
-    print(json.dumps({"kernels": [kernel, *train_kernels]}))
+
+    bneck_kernels = bottleneck_kernel_phase(device)
+    fused = fused_path(device, all_kernels, card)
+    bneck_kernels[0]["launches"] = fused["1"]["launches"]
+    bneck_kernels[1]["launches"] = fused["stage"]["launches"]
+
+    print(json.dumps({"kernels": [kernel, *train_kernels, *bneck_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -74,7 +74,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 32          # the scoring and the training modules
+    assert int(out.stdout.strip()) >= 35          # scoring, training and the fused backbone
 
 
 def test_chip_smoke_refuses_without_cuda():

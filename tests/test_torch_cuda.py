@@ -1,5 +1,6 @@
-"""The Hopper RoIAlign kernels (K1 inference forward, K2 training forward,
-K3 training backward) against their plain PyTorch versions, on the card.
+"""The Hopper kernels against their plain PyTorch versions, on the card:
+RoIAlign (K1 inference forward, K2 training forward, K3 training backward)
+and the fused bottlenecks (K5 one block, K6 a stage's stride-1 suffix).
 
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with an H100 and ``nvcc`` run them with ``python -m pytest tests/test_torch_cuda.py``.
@@ -166,3 +167,161 @@ def test_train_launch_counts_and_bad_input(train_kernels):
         bwd(torch.zeros((*rois.shape[:2], 7, 7, 32), device="cuda").bfloat16(), rois, valid,
             levels, [f.shape for f in feats], spatial_scales=SCALES)
     assert (fwd.launches, bwd.launches) == (n_fwd, n_bwd)
+
+
+# --------------------- fused bottlenecks (K5 and K6) ---------------------
+
+
+@pytest.fixture(scope="module")
+def bneck():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cald_tpu_torch.ops.bottleneck_cuda import FusedBlockKernel, FusedStageKernel
+
+    return FusedBlockKernel(), FusedStageKernel()
+
+
+def _folded_blocks(c: int, p: int, n: int, b1=None, seed: int = 0, device="cuda"):
+    """Seeded folded blocks in the port's layouts, scaled so activations stay
+    of order 1 through a chain."""
+    rng = np.random.default_rng(seed)
+    mk = lambda std, *s: torch.from_numpy(rng.normal(0, std, s).astype(np.float32)).to(device)
+    return [(mk(c ** -0.5, p, c),
+             mk(0.1, p) if b1 is None else torch.full((p,), b1, device=device),
+             mk((9 * p) ** -0.5, p, p, 3, 3), mk(0.1, p), mk(0.5 * p ** -0.5, c, p),
+             mk(0.1, c)) for _ in range(n)]
+
+
+def _activations(b: int, c: int, h: int, w: int, seed: int = 1):
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.normal(0, 1, (b, c, h, w))).astype(np.float32)
+    return torch.from_numpy(x).cuda().contiguous(memory_format=torch.channels_last)
+
+
+def _check(got: torch.Tensor, want: torch.Tensor, dtype):
+    """f32: max abs error <= 1e-4 of the output's largest magnitude (sums of
+    up to 9 P products in another order). bf16 against the f32 plain version:
+    the bounds of tests/test_pallas_bottleneck.py, mean relative error < 0.03
+    overall and on the border rows and columns."""
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    if dtype == torch.float32:
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+        return
+    scale = w.abs().mean().item() + 1e-6
+    assert (g - w).abs().mean().item() / scale < 0.03
+    edge = torch.cat([(g - w)[:, :, 0].flatten(), (g - w)[:, :, -1].flatten(),
+                      (g - w)[:, :, :, 0].flatten(), (g - w)[:, :, :, -1].flatten()])
+    assert edge.abs().mean().item() / scale < 0.03
+
+
+# (B, H, W, C, P): narrow, odd widths (the unaligned path), ragged H and W,
+# R50's layer3 and layer4 suffix inputs, and layer4 of the 96x128 canvas
+BLOCK_SHAPES = [(2, 13, 19, 64, 16), (2, 7, 9, 40, 12), (1, 40, 64, 1024, 256),
+                (2, 20, 32, 2048, 512), (2, 3, 4, 2048, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_block_kernel_matches_plain(bneck, shape, dtype):
+    from cald_tpu_torch.ops import bottleneck
+
+    block_k, _ = bneck
+    b, h, w, c, p = shape
+    x = _activations(b, c, h, w)
+    blk = _folded_blocks(c, p, 1)[0]
+    want = bottleneck.fused_block(x, blk)
+    got = block_k(x.to(dtype), blk)
+    torch.cuda.synchronize()
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n", [((2, 24, 32, 64, 16), 7), ((1, 160, 256, 256, 64), 2),
+                                     ((2, 11, 21, 40, 12), 3), ((1, 80, 128, 512, 128), 3)])
+def test_stage_kernel_matches_plain(bneck, shape, n, dtype):
+    """K6 through its plan against the plain chain."""
+    from cald_tpu_torch.ops import bottleneck
+
+    _, stage_k = bneck
+    b, h, w, c, p = shape
+    x = _activations(b, c, h, w)
+    blocks = _folded_blocks(c, p, n)
+    want = bottleneck.fused_stage(x, blocks)
+    before = stage_k.launches
+    got = stage_k(x.to(dtype), blocks)
+    torch.cuda.synchronize()
+    plan = bottleneck.stage_plan(h, w, c, p, n, x.to(dtype).element_size())
+    assert stage_k.launches == before + len(plan)
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,th,tw", [(2, 4, 8), (3, 4, 4), (4, 2, 8), (3, 8, 16)])
+def test_stage_kernel_any_group_and_tile(bneck, g, th, tw, dtype):
+    """One launch of g chained blocks on ragged tiles (13x19 is no multiple
+    of any tile): every intermediate is masked by the image, not the tile."""
+    from cald_tpu_torch.ops import bottleneck
+
+    _, stage_k = bneck
+    x = _activations(2, 64, 13, 19)
+    blocks = _folded_blocks(64, 16, g, b1=0.5)
+    want = bottleneck.fused_stage(x, blocks)
+    got = stage_k._run(x.to(dtype), blocks, th, tw, g)
+    torch.cuda.synchronize()
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["block", "stage"])
+def test_positive_b1_border(bneck, kind):
+    """The halo-bias case with the bounds of tests/test_pallas_bottleneck.py:
+    with b1 = 1.0 the pixels outside the image must give the 3x3 taps 0, not
+    relu(b1): border mean < 0.02 and max < 0.15 of the mean magnitude."""
+    from cald_tpu_torch.ops import bottleneck
+
+    block_k, stage_k = bneck
+    x = _activations(1, 256, 16, 32)
+    blk = _folded_blocks(256, 64, 1, b1=1.0)[0]
+    want = bottleneck.fused_block(x, blk)
+    xb = x.bfloat16()
+    got = (block_k(xb, blk) if kind == "block" else stage_k(xb, [blk])).float()
+    torch.cuda.synchronize()
+    scale = want.abs().mean().item() + 1e-6
+    d = got - want
+    border = torch.cat([d[:, :, 0].flatten(), d[:, :, -1].flatten(), d[:, :, :, 0].flatten(),
+                        d[:, :, :, -1].flatten()]).abs()
+    assert border.mean().item() / scale < 0.02
+    assert border.max().item() / scale < 0.15
+
+
+def test_bottleneck_launch_counts_and_bad_input(bneck):
+    """One K5 launch per call, one K6 launch per group; an input the kernels
+    refuse raises and launches nothing."""
+    block_k, stage_k = bneck
+    x = _activations(1, 64, 8, 8)
+    blocks = _folded_blocks(64, 16, 3)
+    n5, n6 = block_k.launches, stage_k.launches
+    block_k(x, blocks[0])
+    stage_k(x, blocks)
+    from cald_tpu_torch.ops import bottleneck
+
+    assert block_k.launches == n5 + 1
+    assert stage_k.launches == n6 + len(bottleneck.stage_plan(8, 8, 64, 16, 3, 4))
+    n5, n6 = block_k.launches, stage_k.launches
+    with pytest.raises(TypeError):
+        block_k(x.half(), blocks[0])
+    with pytest.raises(ValueError):
+        block_k(x.contiguous(), blocks[0])              # NCHW, not channels_last
+    with pytest.raises(ValueError):
+        stage_k(x.contiguous(), blocks)
+    with pytest.raises(ValueError):
+        block_k(x, tuple(t.cpu() for t in blocks[0]))   # CPU weights, CUDA input
+    with pytest.raises(ValueError):
+        stage_k(x, [tuple(t.cpu() for t in blk) for blk in blocks])
+    with pytest.raises(ValueError):
+        block_k(x, _folded_blocks(32, 8, 1)[0])         # weights of another width
+    assert (block_k.launches, stage_k.launches) == (n5, n6)
