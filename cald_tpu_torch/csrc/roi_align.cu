@@ -47,6 +47,29 @@
 // which L2 merges into whole-sector reductions. The order of the adds, and so
 // the last bits of the sum, change from run to run.
 //
+// K4, entry cald_roi_align_group_fwd, replaces cald_tpu/ops/pallas_roi_align.py::
+// _roi_group_kernel (the grouped training forward under CALD_TPU_ROI_GROUP=g):
+// K2's function in the TPU kernel's separable form, g rois of one image per
+// group. Per roi, with the pooled bilinear axis weights (each output row and
+// column has 2 * sr taps, a pixel and its weight, a pixel shared by two taps
+// of one bin counted once): t[y, col] = sum_k wy[y, k] * F[row_k, col] over
+// the roi's sample columns, then out[y, x] = sum_j wx[x, j] * t[y, col_j].
+// In the "bf16" mode (hi_prec = 0) the pooled weights and t are rounded to
+// bf16 where the TPU kernel rounds them; the sums stay f32. Not carried over:
+// the block-diagonal weight matrices, the flat (H, W*C) levels, the 8-aligned
+// DMA windows and their size buckets. With no window the result is exact for
+// every roi (the TPU kernel clamps rois wider than its 56-row envelope).
+// Design: one block per (group, output row), threads across C, the group's
+// taps planned once per block into shared memory (g * 2 axes * S * 2sr
+// pairs, 3.5 KB at g = 8); each thread sums t for one channel in registers
+// and folds it straight into its output column, so t needs no storage (a
+// sample column shared by two output columns is summed twice, with the same
+// result). What bounds it: like K2, the gather of the taps' feature rows
+// (coalesced across C in channels-last levels) and the f32 output; the
+// separable form reads each tap pixel once per (output row, column tap).
+// Blocks of a group's image run together, so its pyramid stays in L2.
+// Invalid rois are written as zeros.
+//
 // Layout: level l is (B, H_l, W_l, C) contiguous; rois (B, N, 4) f32 xyxy in
 // image coordinates; valid (B, N) bool; levels (B, N) int32 in [0, L);
 // pooled / gradient of the output (B, N, S, S, C).
@@ -211,6 +234,123 @@ __global__ void roi_align_bwd_kernel(LevelArgs lv, const float* __restrict__ roi
   }
 }
 
+#define CALD_MAX_SR 8
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The 2 * sr taps of output bin o along one axis of extent n (rows or
+// columns of the level): each sample's low pixel and the next, the weight on
+// a pixel the mean over the bin's samples of their weights there (carried by
+// the pixel's first tap, 0 on the others), 0 outside the level and for an
+// invalid roi, rounded to bf16 in the bf16 mode. The order of the sums is the
+// plain version's (ops/roi_align.py::_pooled_taps).
+__device__ __forceinline__ void pooled_taps(float start, float extent, int n, int o, int s,
+                                            int sr, bool keep, bool bf16, int* pix, float* wt) {
+  int p[2 * CALD_MAX_SR];
+  float w[2 * CALD_MAX_SR];
+  for (int i = 0; i < sr; ++i) {
+    const float pos = sample_pos(start, extent, o * sr + i, s, sr);
+    int lo = 0, hi = 0;
+    float wl = 0.f, wh = 0.f;
+    if (pos >= -1.f && pos <= (float)n) {
+      const float pc = fminf(fmaxf(pos, 0.f), (float)(n - 1));
+      lo = (int)floorf(pc);
+      hi = min(lo + 1, n - 1);
+      const float frac = __fsub_rn(pc, (float)lo);
+      wl = __fsub_rn(1.f, frac);
+      wh = frac;
+    }
+    p[2 * i] = lo;     w[2 * i] = wl;
+    p[2 * i + 1] = hi; w[2 * i + 1] = wh;
+  }
+  for (int k = 0; k < 2 * sr; ++k) {
+    bool first = true;
+    for (int e = 0; e < k; ++e) first = first && p[e] != p[k];
+    float sum = 0.f;
+    for (int i = 0; i < sr; ++i) {
+      float ws = 0.f;
+      if (p[2 * i] == p[k]) ws = __fadd_rn(ws, w[2 * i]);
+      if (p[2 * i + 1] == p[k]) ws = __fadd_rn(ws, w[2 * i + 1]);
+      sum = __fadd_rn(sum, ws);
+    }
+    float v = (first && keep) ? __fdiv_rn(sum, (float)sr) : 0.f;
+    if (bf16) v = round_bf16(v);
+    pix[k] = p[k];
+    wt[k] = v;
+  }
+}
+
+// grid: (B * groups_per_image, S); block: threads across C.
+// dynamic shared memory: g rois x 2 axes x S bins x 2sr taps x (int + float).
+template <typename T>
+__global__ void roi_align_group_kernel(LevelArgs lv, const float* __restrict__ rois,
+                                       const bool* __restrict__ valid,
+                                       const int* __restrict__ levels, float* __restrict__ out,
+                                       int n, int c, int s, int sr, int g, int groups_per_image,
+                                       int bf16) {
+  extern __shared__ unsigned char smem[];
+  const int b = blockIdx.x / groups_per_image;
+  const int r0 = b * n + (blockIdx.x % groups_per_image) * g;   // first roi of the group
+  const int m = min(g, b * n + n - r0);                          // the image's last group is short
+  const int y = blockIdx.y;                                      // output row
+  const int taps = 2 * sr;
+  const int per_axis = s * taps;
+  int* pix = reinterpret_cast<int*>(smem);                       // [g][2 axes][S][taps]
+  float* wt = reinterpret_cast<float*>(pix + g * 2 * per_axis);
+
+  for (int t = threadIdx.x; t < m * 2 * s; t += blockDim.x) {
+    const int j = t / (2 * s);
+    const int axis = (t / s) % 2;                                // 0 rows (y), 1 columns (x)
+    const int o = t % s;
+    const int r = r0 + j;
+    const int l = levels[r];
+    const float scale = lv.scale[l];
+    const float* roi = rois + 4 * r;
+    const float lo = __fmul_rn(roi[axis == 0 ? 1 : 0], scale);
+    const float extent = fmaxf(__fsub_rn(__fmul_rn(roi[axis == 0 ? 3 : 2], scale), lo), 1.f);
+    const int off = (j * 2 + axis) * per_axis + o * taps;
+    pooled_taps(lo, extent, axis == 0 ? lv.h[l] : lv.w[l], o, s, sr, valid[r], bf16 != 0,
+                pix + off, wt + off);
+  }
+  __syncthreads();
+
+  for (int j = 0; j < m; ++j) {
+    const int r = r0 + j;
+    float* o = out + ((size_t)r * s + y) * (size_t)s * c;
+    if (!valid[r]) {
+      for (int i = threadIdx.x; i < s * c; i += blockDim.x) o[i] = 0.f;
+      continue;
+    }
+    const int l = levels[r];
+    const int w = lv.w[l];
+    const T* f = static_cast<const T*>(lv.ptr[l]) + (size_t)b * lv.h[l] * w * c;
+    const int* yp = pix + (j * 2) * per_axis + y * taps;
+    const float* yw = wt + (j * 2) * per_axis + y * taps;
+    const int* xp = pix + (j * 2 + 1) * per_axis;
+    const float* xw = wt + (j * 2 + 1) * per_axis;
+    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+      for (int x = 0; x < s; ++x) {
+        float acc = 0.f;
+        for (int jx = 0; jx < taps; ++jx) {
+          const float wx = xw[x * taps + jx];
+          if (wx == 0.f) continue;                 // the same for every thread
+          const T* col = f + (size_t)xp[x * taps + jx] * c + ch;
+          float t = 0.f;                           // t[y, col_jx] for this channel
+          for (int ky = 0; ky < taps; ++ky) {
+            const float wy = yw[ky];
+            if (wy != 0.f) t += wy * to_float(col[(size_t)yp[ky] * w * c]);
+          }
+          if (bf16) t = round_bf16(t);
+          acc += wx * t;
+        }
+        o[(size_t)x * c + ch] = acc;
+      }
+    }
+  }
+}
+
 static int fill_levels(LevelArgs* lv, const void* const* level_ptrs, const int* level_h,
                        const int* level_w, const float* level_scale, int num_levels) {
   if (num_levels < 1 || num_levels > CALD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
@@ -285,6 +425,39 @@ extern "C" int cald_roi_align_train_fwd(const void* const* level_ptrs, const int
                                         void* stream) {
   return launch_fwd(level_ptrs, level_h, level_w, level_scale, num_levels, rois, valid, levels,
                     out, b, n, c, out_size, sampling_ratio, dtype, 1, stream);
+}
+
+// K4: out (B, N, S, S, C) float32; g rois of one image per group (the last
+// group of an image may be short); hi_prec 1 = f32 throughout, 0 = the
+// "bf16" mode.
+extern "C" int cald_roi_align_group_fwd(const void* const* level_ptrs, const int* level_h,
+                                        const int* level_w, const float* level_scale,
+                                        int num_levels, const float* rois, const bool* valid,
+                                        const int* levels, float* out, int b, int n, int c,
+                                        int out_size, int sampling_ratio, int dtype, int g,
+                                        int hi_prec, void* stream) {
+  LevelArgs lv;
+  const int err = fill_levels(&lv, level_ptrs, level_h, level_w, level_scale, num_levels);
+  if (err != (int)cudaSuccess) return err;
+  if (g < 1 || sampling_ratio < 1 || sampling_ratio > CALD_MAX_SR) return (int)cudaErrorInvalidValue;
+  if (b * n == 0) return (int)cudaSuccess;
+  const int groups = (n + g - 1) / g;
+  const dim3 grid(b * groups, out_size);
+  const int threads = threads_for(c);
+  const size_t smem = (size_t)g * 2 * out_size * 2 * sampling_ratio * (sizeof(int) + sizeof(float));
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bf16 = hi_prec ? 0 : 1;
+  if (dtype == 0) {
+    roi_align_group_kernel<float><<<grid, threads, smem, st>>>(
+        lv, rois, valid, levels, out, n, c, out_size, sampling_ratio, g, groups, bf16);
+  } else if (dtype == 1) {
+    roi_align_group_kernel<__nv_bfloat16><<<grid, threads, smem, st>>>(
+        lv, rois, valid, levels, out, n, c, out_size, sampling_ratio, g, groups, bf16);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // K3: grad_ptrs are the float32 (B, H_l, W_l, C) level gradients, zeroed by

@@ -27,6 +27,12 @@ class Detections:
     prob_max: torch.Tensor
     props: torch.Tensor
 
+    def rescale(self, scale: torch.Tensor) -> "Detections":
+        """Boxes and props divided by the per-image ``scale`` (..., ) back to
+        original image coordinates (the reference's transform.postprocess)."""
+        s = scale[..., None, None]
+        return dataclasses.replace(self, boxes=self.boxes / s, props=self.props / s)
+
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Detections":
         """Apply ``fn`` to every field."""
         return Detections(**{f.name: fn(getattr(self, f.name))

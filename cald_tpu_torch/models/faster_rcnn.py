@@ -7,14 +7,17 @@ backbone tensors are NCHW in ``torch.channels_last`` format; the pyramid
 handed to RoIAlign is NHWC. Inference RoIAlign goes through
 ``ops.roi_align_cuda.roi_align_kernel`` (K1), training RoIAlign through
 ``RoIAlignFunction`` (K2 forward, K3 backward): the Hopper kernels for CUDA
-tensors, their plain versions for CPU tensors. ``detect`` lets the backbone
-run its opt-in fused bottlenecks (K5/K6, ``CALD_TPU_PALLAS_BNECK``);
-``loss`` never does.
+tensors, their plain versions for CPU tensors. ``CALD_TPU_ROI_FLM=0``
+sends ``detect`` through the window forward instead (K2, or K4 under
+``CALD_TPU_ROI_GROUP``; float32 output), as the JAX package's ``detect``.
+``detect`` lets the backbone run its opt-in fused bottlenecks (K5/K6,
+``CALD_TPU_PALLAS_BNECK``); ``loss`` never does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -30,7 +33,8 @@ from cald_tpu_torch.models.roi_heads import (
     postprocess_detections, select_training_samples,
 )
 from cald_tpu_torch.models.rpn import RPNHead, rpn_loss, select_proposals
-from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel
+from cald_tpu_torch.ops.roi_align import roi_levels
+from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel, window_roi_align
 
 # torchvision GeneralizedRCNNTransform defaults
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -201,8 +205,13 @@ class FasterRCNN(nn.Module):
 
         b, n = props.shape[:2]
         levels, scales = self._roi_levels(pyramid)
-        pooled = self.roi_align(levels, props.contiguous(), pvalid.contiguous(),
-                                spatial_scales=scales)
+        props, pvalid = props.contiguous(), pvalid.contiguous()
+        if os.environ.get("CALD_TPU_ROI_FLM", "1") == "1":
+            pooled = self.roi_align(levels, props, pvalid, spatial_scales=scales)
+        else:
+            pooled = window_roi_align(levels, props, pvalid,
+                                      roi_levels(props, scales).contiguous(),
+                                      spatial_scales=scales)
         rep = self.box_head(pooled.reshape(b * n, -1))
         class_logits, box_regression = self.box_predictor(rep)
         return postprocess_detections(

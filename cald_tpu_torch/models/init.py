@@ -1,0 +1,47 @@
+"""Seeded initialisation in the JAX package's families (``flax`` inits of
+``cald_tpu/models``): truncated-normal kaiming fan-out convolutions
+(``cald_tpu/models/layers.py::conv_kaiming``), ``normal(0.01)`` detection
+heads (the RPN head and the box predictor), truncated lecun-normal Dense
+layers (Flax's default), zero biases; frozen norms keep their identity
+statistics. The draws come from a ``torch.Generator`` seeded with ``seed``,
+so they are the port's own, not the JAX package's.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from cald_tpu_torch.models.layers import Conv, Dense
+
+# Flax's truncated normal rescales its std by the std of a unit normal cut at +-2
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
+    s = std / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=g)
+
+
+def random_init_(model: nn.Module, seed: int) -> None:
+    """Re-initialise every ``Conv`` and ``Dense`` of ``model`` in place."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, Conv):
+                o, _, kh, kw = m.weight.shape
+                if name.startswith("rpn_head"):
+                    m.weight.normal_(0.0, 0.01, generator=g)
+                else:
+                    _truncated_(m.weight, math.sqrt(2.0 / (o * kh * kw)), g)
+            elif isinstance(m, Dense):
+                if name.startswith("box_predictor"):
+                    m.weight.normal_(0.0, 0.01, generator=g)
+                else:
+                    _truncated_(m.weight, math.sqrt(1.0 / m.weight.shape[1]), g)
+            else:
+                continue
+            if m.bias is not None:
+                m.bias.zero_()

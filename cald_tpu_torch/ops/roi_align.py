@@ -8,17 +8,33 @@ y < -1 or y > H contribute zero, others are clamped into the level).
 
 These are the plain versions of the Hopper kernels in ``ops/roi_align_cuda.py``:
 ``multi_scale_roi_align`` of the inference forward (K1, output in the feature
-dtype) and of the training forward (K2, ``out_dtype=torch.float32``), and
-``multi_scale_roi_align_backward`` of the training backward (K3). They are
-the CPU path of the detector and the yardstick the kernels are held to.
+dtype) and of the training forward (K2, ``out_dtype=torch.float32``),
+``multi_scale_roi_align_backward`` of the training backward (K3), and
+``grouped_multi_scale_roi_align`` of the grouped forward (K4, the separable
+form with its bf16 rounding points). They are the CPU path of the detector
+and the yardstick the kernels are held to.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence
 
 import torch
+
+
+def roi_group() -> int:
+    """Rois per group of the grouped forward, ``CALD_TPU_ROI_GROUP`` (0 or
+    unset: off), read at call time as the JAX package's ``_group()``."""
+    return int(os.environ.get("CALD_TPU_ROI_GROUP", "0") or 0)
+
+
+def roi_group_hi_prec() -> bool:
+    """The grouped forward's precision, ``CALD_TPU_ROI_GROUP_PREC``: "hi"
+    (the default) keeps everything in float32; "bf16" rounds the pooled axis
+    weights and the intermediate ``t`` to bfloat16."""
+    return os.environ.get("CALD_TPU_ROI_GROUP_PREC", "hi") != "bf16"
 
 
 def fpn_level_assignment(rois: torch.Tensor, *, k_min: int = 2, k_max: int = 5,
@@ -150,6 +166,111 @@ def multi_scale_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
         out[sl] = val.reshape(-1, output_size, sampling_ratio, output_size,
                               sampling_ratio, c).mean(dim=(2, 4))
     return out.reshape(b, n, output_size, output_size, c).to(out_dtype or feats[0].dtype)
+
+
+def _pooled_taps(start, extent, n_valid, out_size: int, sr: int, bf16: bool):
+    """The pooled axis weights of K4 for every roi: for each output bin its
+    ``2 * sr`` (pixel, weight) taps, (R, out_size, 2 * sr) each. Each sample
+    puts ``1 - frac`` on its low pixel and ``frac`` on the next; a bin's
+    weight on a pixel is the mean over its ``sr`` samples of their weights
+    there, as the JAX package's ``_axis_weights`` sums its one-hot rows. A
+    pixel that several taps of a bin share carries the whole weight on its
+    first tap and 0 on the others. Samples outside the level weigh 0. With
+    ``bf16`` the weights are rounded to bfloat16 (and back)."""
+    lo, hi, frac, inside = _axis_samples(start, extent, n_valid, out_size, sr)
+    zero = torch.zeros((), device=frac.device)
+    w_lo = torch.where(inside, 1.0 - frac, zero)
+    w_hi = torch.where(inside, frac, zero)
+    r = lo.shape[0]
+    # (R, out, sr, 2): the taps of each sample, low pixel first
+    pix = torch.stack([lo, hi], -1).reshape(r, out_size, sr, 2)
+    con = torch.stack([w_lo, w_hi], -1).reshape(r, out_size, sr, 2)
+    # each sample's weight on each tap's pixel (a sample's two taps are one
+    # pixel only at the level's edge, where the second weighs 0)
+    per_sample = torch.where(pix[..., None] == pix.reshape(r, out_size, 1, 1, 2 * sr),
+                             con[..., None], zero).sum(dim=3)          # (R, out, sr, 2sr)
+    pooled = per_sample.sum(dim=2) / float(sr)                         # (R, out, 2sr)
+    flat = pix.reshape(r, out_size, 2 * sr)
+    k = torch.arange(2 * sr, device=flat.device)
+    earlier = (flat[..., :, None] == flat[..., None, :]) & (k[None, :] < k[:, None])
+    pooled = torch.where(earlier.any(dim=-1), zero, pooled)
+    if bf16:
+        pooled = pooled.to(torch.bfloat16).float()
+    return flat, pooled
+
+
+def grouped_multi_scale_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
+                                  spatial_scales: Sequence[float], g: int,
+                                  hi_prec: bool = True,
+                                  valid: torch.Tensor | None = None,
+                                  levels: torch.Tensor | None = None,
+                                  output_size: int = 7, sampling_ratio: int = 2,
+                                  chunk_size: int = 128) -> torch.Tensor:
+    """K2's function in K4's separable form, float32 output.
+
+    Per roi, with the pooled axis weights ``wy``/``wx`` of ``_pooled_taps``
+    over the taps of each output row and column:
+    ``t[y, j, c] = sum_k wy[y, k] * F[row_k, col_j, c]`` over the columns
+    ``col_j`` of every column tap, then ``out[y, x, c] = sum_j wx[x, j] *
+    t[y, j, c]`` over the taps of column ``x``. ``hi_prec=False`` is the
+    JAX package's "bf16" mode: ``wy``, ``wx`` and ``t`` are rounded to
+    bfloat16, the sums stay float32 and the features keep their dtype.
+
+    The rois of each image are padded to a multiple of ``g`` (the TPU's rois
+    per grid step, the Hopper kernel's rois per block); the padding rois and
+    invalid rois give zeros. Same arguments and result as
+    ``multi_scale_roi_align(..., out_dtype=torch.float32)``.
+    """
+    if g < 1:
+        raise ValueError(f"grouped roi_align: g must be >= 1, not {g}")
+    b, n = rois.shape[:2]
+    c = feats[0].shape[-1]
+    dev = rois.device
+    if levels is None:
+        levels = roi_levels(rois, spatial_scales)
+    if valid is None:
+        valid = torch.ones((b, n), dtype=torch.bool, device=dev)
+    n_pad = -(-n // g) * g
+    pad = n_pad - n
+    rois_p = torch.nn.functional.pad(rois.float(), (0, 0, 0, pad))
+    valid_p = torch.nn.functional.pad(valid, (0, pad))
+    levels_p = torch.nn.functional.pad(levels.long(), (0, pad))
+
+    pyr = _Pyramid([f.shape for f in feats], spatial_scales, dev)
+    flat = torch.cat([f.reshape(b, -1, c) for f in feats], dim=1).reshape(-1, c)
+    taps = 2 * sampling_ratio
+    bf16 = not hi_prec
+    out = torch.zeros((b * n_pad, output_size, output_size, c), dtype=torch.float32,
+                      device=dev)
+    r_all = rois_p.reshape(-1, 4)
+    lv_all = levels_p.reshape(-1)
+    keep_all = valid_p.reshape(-1)
+    img_all = torch.arange(b, device=dev).repeat_interleave(n_pad)
+    for start in range(0, b * n_pad, chunk_size):
+        sl = slice(start, min(start + chunk_size, b * n_pad))
+        r, lv = r_all[sl], lv_all[sl]
+        scale = pyr.scales[lv]
+        h_l, w_l = pyr.hs[lv], pyr.ws[lv]
+        x1 = r[:, 0] * scale
+        y1 = r[:, 1] * scale
+        roi_w = (r[:, 2] * scale - x1).clamp_min(1.0)
+        roi_h = (r[:, 3] * scale - y1).clamp_min(1.0)
+        rows, wy = _pooled_taps(y1, roi_h, h_l, output_size, sampling_ratio, bf16)
+        cols, wx = _pooled_taps(x1, roi_w, w_l, output_size, sampling_ratio, bf16)
+        keep = keep_all[sl].to(wy.dtype)[:, None, None]
+        wy, wx = wy * keep, wx * keep
+        m = r.shape[0]
+        base = img_all[sl] * pyr.p_total + pyr.offs[lv]
+        # window[r, y*taps + k, x*taps + j, :] = F[row_(y,k), col_(x,j), :]
+        idx = (base[:, None, None] + rows.reshape(m, -1)[:, :, None] * w_l.long()[:, None, None]
+               + cols.reshape(m, -1)[:, None, :])
+        win = flat[idx.reshape(-1)].reshape(m, output_size, taps, output_size * taps, c).float()
+        t = (wy[:, :, :, None, None] * win).sum(dim=2)            # (m, out, out*taps, C)
+        if bf16:
+            t = t.to(torch.bfloat16).float()
+        t = t.reshape(m, output_size, output_size, taps, c)
+        out[sl] = (wx[:, None, :, :, None] * t).sum(dim=3)
+    return out.reshape(b, n_pad, output_size, output_size, c)[:, :n]
 
 
 def multi_scale_roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,

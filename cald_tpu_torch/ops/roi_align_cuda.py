@@ -7,9 +7,14 @@
   replaces ``cald_tpu/ops/pallas_roi_align.py::_roi_kernel``.
 - ``roi_align_bwd_kernel`` (K3): the training backward into float32 level
   gradients; replaces ``cald_tpu/ops/pallas_roi_align.py::_roi_bwd_kernel``.
+- ``roi_align_group_fwd_kernel`` (K4): the grouped training forward, g rois
+  of one image per block in the separable form, float32 output; replaces
+  ``cald_tpu/ops/pallas_roi_align.py::_roi_group_kernel``.
 
-``RoIAlignFunction`` joins K2 and K3 for autograd (the detector applies it
-in ``models/roi_heads.py::pool_box_features``). Each wrapper chooses by the
+``window_roi_align`` is the TPU window kernels' forward: K4 under the group
+gate (``CALD_TPU_ROI_GROUP``), else K2. ``RoIAlignFunction`` joins it and K3
+for autograd (the detector applies it in
+``models/roi_heads.py::pool_box_features``). Each wrapper chooses by the
 device of the tensors it is given: for CPU tensors it runs the plain version
 (``ops/roi_align.py``); for CUDA tensors it launches its kernel or raises. The kernels are compiled with
 ``nvcc`` for ``sm_90a`` at first launch (``ops/cuda_build.py``); importing
@@ -121,8 +126,32 @@ class RoIAlignTrainForward(_Entry):
                         sampling_ratio, torch.float32)
 
 
+class RoIAlignGroupForward(_Entry):
+    """K4, the grouped training forward: float32 output, g rois per group."""
+
+    symbol = "cald_roi_align_group_fwd"
+    argtypes = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 8 + [_P]
+
+    def __call__(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                 valid: torch.Tensor, levels: torch.Tensor, *, g: int, hi_prec: bool,
+                 spatial_scales: Sequence[float], output_size: int = 7,
+                 sampling_ratio: int = 2) -> torch.Tensor:
+        """As ``RoIAlignTrainForward``, with ``g`` rois of one image per group
+        and ``hi_prec`` False for the "bf16" mode. Returns (B, N, S, S, C)
+        float32."""
+        if self._device(rois) == "cpu":
+            return plain.grouped_multi_scale_roi_align(
+                feats, rois, spatial_scales=spatial_scales, g=g, hi_prec=hi_prec,
+                valid=valid, levels=levels, output_size=output_size,
+                sampling_ratio=sampling_ratio)
+        if not 1 <= g <= 64:
+            raise ValueError(f"roi_align group: g must be in 1..64, not {g}")
+        return _forward(self, feats, rois, valid, levels, spatial_scales, output_size,
+                        sampling_ratio, torch.float32, g, int(hi_prec))
+
+
 def _forward(entry: _Entry, feats, rois, valid, levels, spatial_scales, output_size,
-             sampling_ratio, out_dtype):
+             sampling_ratio, out_dtype, *extra):
     _check_levels(feats, rois, spatial_scales)
     b, c = feats[0].shape[0], feats[0].shape[-1]
     _check_rois(rois, valid, levels, b)
@@ -133,7 +162,8 @@ def _forward(entry: _Entry, feats, rois, valid, levels, spatial_scales, output_s
     entry._launch(ctypes.cast(ptrs, _P), ctypes.cast(hs, _P), ctypes.cast(ws, _P),
                   ctypes.cast(scales, _P), len(feats), rois.data_ptr(), valid.data_ptr(),
                   levels.data_ptr(), out.data_ptr(), b, n, c, output_size, sampling_ratio,
-                  _DTYPES[feats[0].dtype], torch.cuda.current_stream(rois.device).cuda_stream)
+                  _DTYPES[feats[0].dtype], *extra,
+                  torch.cuda.current_stream(rois.device).cuda_stream)
     return out
 
 
@@ -177,21 +207,39 @@ class RoIAlignBackward(_Entry):
 roi_align_kernel = RoIAlignKernel()
 roi_align_train_fwd_kernel = RoIAlignTrainForward()
 roi_align_bwd_kernel = RoIAlignBackward()
+roi_align_group_fwd_kernel = RoIAlignGroupForward()
+
+
+def window_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor, valid: torch.Tensor,
+                     levels: torch.Tensor, *, spatial_scales: Sequence[float],
+                     output_size: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
+    """The forward of the TPU window kernels (the JAX package's
+    ``pallas_roi_align._forward``), float32 output: K4 when
+    ``CALD_TPU_ROI_GROUP`` is g > 1 and every image has at least 4g rois (the
+    TPU kernel's two pipeline slots of g), else K2. Both gates are read at
+    call time."""
+    g = plain.roi_group()
+    kw = dict(spatial_scales=spatial_scales, output_size=output_size,
+              sampling_ratio=sampling_ratio)
+    if g > 1 and rois.shape[1] >= 4 * g:
+        return roi_align_group_fwd_kernel(feats, rois, valid, levels, g=g,
+                                          hi_prec=plain.roi_group_hi_prec(), **kw)
+    return roi_align_train_fwd_kernel(feats, rois, valid, levels, **kw)
 
 
 class RoIAlignFunction(torch.autograd.Function):
-    """Training RoIAlign, differentiable with respect to the levels: K2
-    forward and K3 backward for CUDA tensors, the plain versions for CPU
-    tensors. The rois get no gradient (proposals are detached upstream, as
-    the TPU kernel's custom_vjp gives them a zero cotangent)."""
+    """Training RoIAlign, differentiable with respect to the levels:
+    ``window_roi_align`` forward (K4 or K2) and K3 backward for CUDA
+    tensors, the plain versions for CPU tensors. The backward is K3 whichever
+    forward ran, as the TPU custom_vjp keeps its standard plan. The rois get
+    no gradient (proposals are detached upstream, as the TPU kernel's
+    custom_vjp gives them a zero cotangent)."""
 
     @staticmethod
     def forward(ctx, rois, valid, spatial_scales, output_size, sampling_ratio, *feats):
         levels = plain.roi_levels(rois, spatial_scales).contiguous()
-        out = roi_align_train_fwd_kernel(feats, rois, valid, levels,
-                                         spatial_scales=spatial_scales,
-                                         output_size=output_size,
-                                         sampling_ratio=sampling_ratio)
+        out = window_roi_align(feats, rois, valid, levels, spatial_scales=spatial_scales,
+                               output_size=output_size, sampling_ratio=sampling_ratio)
         ctx.save_for_backward(rois, valid, levels)
         ctx.level_shapes = [tuple(f.shape) for f in feats]
         ctx.level_dtype = feats[0].dtype

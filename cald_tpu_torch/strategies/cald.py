@@ -45,7 +45,11 @@ def subsample_reference(boxes, scores, labels, scores_cls, prob_max, valid, *,
     first = steps.to(torch.int64)[None].expand_as(lin)
     many = (n > threshold)[:, None]
     take = torch.where(many, lin, first)                            # (B, k_ref)
-    new_valid = many | (first < n[:, None])
+    # with fewer than k_ref slots the extra ones are invalid (JAX's take
+    # fills them); they repeat the last slot here
+    k = valid.shape[1]
+    new_valid = (many | (first < n[:, None])) & (take < k)
+    take = take.clamp_max(k - 1)
 
     def g(a):
         idx = take.reshape(take.shape + (1,) * (a.dim() - 2)).expand(
@@ -127,6 +131,17 @@ def score_pool(score_fn: Callable, loader: Iterable, pool_indices: Sequence[int]
     if not seen.all():
         raise RuntimeError(f"pool scoring missed {int((~seen).sum())} images")
     return consistency, cls_corrs
+
+
+def labeled_class_counts(dataset, labeled_indices, num_fg_classes: int) -> np.ndarray:
+    """Mean per-image class-count vector over the labeled set (cls_kldiv's
+    ``result``, reference cald_train.py:238-243)."""
+    out = np.zeros((len(labeled_indices), num_fg_classes), np.float64)
+    for i, idx in enumerate(labeled_indices):
+        rec = dataset.record(int(idx))
+        for l in rec.labels:
+            out[i, int(l) - 1] += 1
+    return out.mean(axis=0) if len(out) else np.zeros((num_fg_classes,))
 
 
 def _softmax(x: np.ndarray, axis=-1) -> np.ndarray:

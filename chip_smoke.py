@@ -56,7 +56,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
      copy with the JAX test's norm statistics); the f32 fused pyramid on the
      GPU against the CPU's plain fused path (1e-3); 5 warm score calls per
      mode; backbone+FPN at B=32 four ways (unfused, plain folded chain, K5,
-     K6) in turns.
+     K6) in turns;
+ 10. grouped RoIAlign kernel: K4 against its plain version at the training
+     path's shapes (as phase 6) and at the CALD_TPU_ROI_FLM=0 inference
+     shapes (as phase 3), g = 2 and 8 in "hi" and g = 8 in "bf16": f32
+     features with TF32 off against the plain version of the same mode (atol
+     1e-4 "hi", 5e-2 "bf16"), bf16 features against the plain f32 version
+     (atol 5e-2); invalid rois exactly 0; K2 and K4 timed in turns (K2 K4 K4
+     K2) at the training shapes in bf16, g = 8;
+ 11. the active-learning loop: ``cli.driver.al_loop`` on the card with
+     CALD_TPU_ROI_GROUP=8: R50-FPN, 21 VOC classes, bf16, RPN 2000/2000 and
+     1000/1000, samplers 256/512, from a torchvision-layout backbone that the
+     phase writes first (the seeded init, frozen norms calibrated on one batch
+     of the data), as users pass ImageNet weights; a synthetic VOC set of 48
+     trainval and 16 test images of 375x500 written as ``.npy``; strategy
+     cald with FCDR, 2 cycles of 1 epoch, batch 4, 16 initial images, budget
+     8, score batch 8, evaluation every cycle, checkpoints under a temporary
+     directory; checks finite losses, labeled 16 -> 24 (25 where no candidate
+     has a detection: CALD's stage 2 then takes all int(1.2 * 8) candidates,
+     as the reference does), a finite VOC mAP per
+     cycle, ``cycle_0/`` written, one K4 and one K3 launch per training step
+     and no K2 or K1 in training, one K1 per detect of evaluation and
+     scoring; then one score call with CALD_TPU_ROI_FLM=0 (K4 twice, K1
+     none); prints each cycle's wall time and its train/eval/score split,
+     and from cycle 0's torch.profiler trace (``--profile-dir``, which slows
+     that cycle) the device busy share and the kernels that took the most.
+
+Every kernel's entry has its launches on the path that runs it (K1 phase 4,
+K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9), its time and its plain
+version's, its bound (the larger of its bytes over 3.35 TB/s and its
+operations over the peak of their type, from this run's inputs) and
+``library_ms`` null: no single PyTorch call computes RoIAlign or a
+bottleneck.
 
 The line before the last is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. JAX is not imported.
@@ -70,6 +101,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -114,6 +146,62 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s, bf16
+# tensor-core and f32 (outside the tensor cores) operations/s
+HBM_BYTES_S = 3.35e12
+BF16_OPS_S = 989e12
+F32_OPS_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take for work that moves ``n_bytes``
+    (each input read once, each output written once) and does ``n_ops``
+    operations at ``ops_per_s``: the larger of the two times."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_per_s
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def roi_work(feats, rois, valid, levels, output_size: int = 7, sr: int = 2):
+    """What a RoIAlign over these inputs must touch: (bytes of the level
+    pixels that the valid rois' bilinear taps read, each once; operations,
+    one multiply and one add per tap and channel: S*S*sr*sr samples x 4
+    corners per valid roi)."""
+    import torch
+
+    from cald_tpu_torch.ops import roi_align as plain
+
+    b, n = rois.shape[:2]
+    c = feats[0].shape[-1]
+    pyr = plain._Pyramid([f.shape for f in feats], SCALES, rois.device)
+    keep = valid.reshape(-1)
+    r = rois.reshape(-1, 4)[keep].float()
+    lv = levels.reshape(-1)[keep].long()
+    img = torch.arange(b, device=rois.device).repeat_interleave(n)[keep]
+    touched = torch.zeros(b * pyr.p_total, dtype=torch.bool, device=rois.device)
+    for start in range(0, r.shape[0], 1024):
+        sl = slice(start, start + 1024)
+        scale = pyr.scales[lv[sl]]
+        x1, y1 = r[sl, 0] * scale, r[sl, 1] * scale
+        rw = (r[sl, 2] * scale - x1).clamp_min(1.0)
+        rh = (r[sl, 3] * scale - y1).clamp_min(1.0)
+        rows, wy = plain._pooled_taps(y1, rh, pyr.hs[lv[sl]], output_size, sr, False)
+        cols, wx = plain._pooled_taps(x1, rw, pyr.ws[lv[sl]], output_size, sr, False)
+        m = rows.shape[0]
+        idx = ((img[sl] * pyr.p_total + pyr.offs[lv[sl]])[:, None, None]
+               + rows.reshape(m, -1)[:, :, None] * pyr.ws[lv[sl]].long()[:, None, None]
+               + cols.reshape(m, -1)[:, None, :])
+        hit = (wy.reshape(m, -1) > 0)[:, :, None] & (wx.reshape(m, -1) > 0)[:, None, :]
+        touched[idx[hit]] = True
+    n_ops = 2.0 * int(keep.sum()) * c * output_size ** 2 * sr ** 2 * 4
+    return int(touched.sum()) * c * feats[0].element_size(), n_ops
+
+
+def roi_index_bytes(rois, valid, levels) -> int:
+    return rois.numel() * 4 + valid.numel() + levels.numel() * 4
 
 
 def roi_inputs(device, b: int = BATCH, n: int = 1000, c: int = 256, seed: int = SEED):
@@ -169,9 +257,14 @@ def kernel_phase(device) -> dict:
           f"plain {plain_ms:.4f} ms")
     if not (err_f32 <= 1e-4 and err_bf16 <= 5e-2 and zero_f32 == 0.0 and zero_bf16 == 0.0):
         raise AssertionError("roi_align kernel disagrees with its plain version")
+    levels = plain.roi_levels(rois, scales)
+    level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
+    # no single PyTorch call computes RoIAlign (torchvision is not a dependency)
     return {"name": "roi_align", "route": "cuda", "source": "cald_tpu_torch/csrc/roi_align.cu",
             "replaces": "cald_tpu/ops/flm_roi_align.py:123", "max_abs_err": err_bf16,
-            "max_abs_err_f32": err_f32, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err_f32": err_f32, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound(level_bytes + got_bf.numel() * 2 + roi_index_bytes(rois, valid, levels),
+                    n_ops, F32_OPS_S)}
 
 
 def gt_boxes(rng, b: int):
@@ -275,41 +368,35 @@ def train_kernel_phase(device) -> list[dict]:
             and zero == 0.0 and dead_max == 0.0):
         raise AssertionError("a training RoIAlign kernel disagrees with its plain version")
     src = "cald_tpu_torch/csrc/roi_align.cu"
+    level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
+    index_bytes = roi_index_bytes(rois, valid, levels)
+    fwd_bound = bound(level_bytes + got.numel() * 4 + index_bytes, n_ops, F32_OPS_S)
+    # K3 reads grad_out (f32) and writes every level's f32 gradient
+    bwd_bound = bound(cot.numel() * 4 + sum(g.numel() * 4 for g in got_g) + index_bytes,
+                      n_ops, F32_OPS_S)
     return [{"name": "roi_align_train_fwd", "route": "cuda", "source": src,
              "replaces": "cald_tpu/ops/pallas_roi_align.py:132", "max_abs_err": fwd_bf16,
-             "max_abs_err_f32": fwd_f32, "ms": fwd_ms, "plain_ms": fwd_plain_ms},
+             "max_abs_err_f32": fwd_f32, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+             "library_ms": None, **fwd_bound},
             {"name": "roi_align_bwd", "route": "cuda", "source": src,
              "replaces": "cald_tpu/ops/pallas_roi_align.py:534", "max_abs_err": bwd_bf16,
-             "max_abs_err_f32": bwd_f32, "ms": bwd_ms, "plain_ms": bwd_plain_ms}]
+             "max_abs_err_f32": bwd_f32, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+             "library_ms": None, **bwd_bound}]
 
 
-def random_init_(model, seed: int, amplify_heads: bool = True) -> None:
-    """Seeded random weights in the JAX package's init families: kaiming
-    (fan_out) normal convs, normal(0.01) detection heads, lecun-normal Dense
-    layers, zero biases. With ``amplify_heads`` (scoring) the heads are then
-    amplified as in tests/test_golden_parity.py so that scores and boxes
-    spread out; training starts from the JAX package's init as it is."""
+# the gains of tests/test_golden_parity.py, so that a random detector's scores
+# and boxes spread out (scoring); training starts from the init as it is
+HEAD_GAINS = {"rpn_head.objectness": 60.0, "rpn_head.deltas": 8.0, "rpn_head.conv": 3.0,
+              "box_predictor.cls_score": 35.0, "box_predictor.bbox_pred": 15.0}
+
+
+def amplify_heads_(model) -> None:
     import torch
 
-    from cald_tpu_torch.models.layers import Conv, Dense
-
-    g = torch.Generator().manual_seed(seed)
-    heads = {"rpn_head.objectness": 60.0, "rpn_head.deltas": 8.0, "rpn_head.conv": 3.0,
-             "box_predictor.cls_score": 35.0, "box_predictor.bbox_pred": 15.0}
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, Conv):
-                o, _, kh, kw = m.weight.shape
-                std = 0.01 if name.startswith("rpn_head") else math.sqrt(2.0 / (o * kh * kw))
-            elif isinstance(m, Dense):
-                std = (0.01 if name.startswith("box_predictor")
-                       else 1.0 / math.sqrt(m.weight.shape[1]))
-            else:
-                continue
-            m.weight.normal_(0.0, std * (heads.get(name, 1.0) if amplify_heads else 1.0),
-                             generator=g)
-            if m.bias is not None:
-                m.bias.zero_()
+            if name in HEAD_GAINS:
+                m.weight.mul_(HEAD_GAINS[name])
 
 
 def calibrate_norms_(model, images, valid_hw) -> None:
@@ -366,11 +453,14 @@ def build_model(device, backbone: str = "resnet50", compute_dtype: str = "bfloat
     import torch
 
     from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
+    from cald_tpu_torch.models.init import random_init_
 
     cfg = FasterRCNNConfig(num_classes=NUM_CLASSES, backbone=backbone,
                            compute_dtype=compute_dtype)
     model = FasterRCNN(cfg).eval()
-    random_init_(model, SEED, amplify_heads)
+    random_init_(model, SEED)
+    if amplify_heads:
+        amplify_heads_(model)
     model.to(device)
     calib = make_pool(BATCH, seed=SEED + 1)[0]
     calibrate_norms_(model, torch.from_numpy(calib.images[:2]).to(device),
@@ -596,6 +686,10 @@ def bottleneck_kernel_phase(device) -> list[dict]:
         scale, top = want.abs().mean().item(), want.abs().max().item()
         plain_ms = cuda_ms(lambda: plain.fused_stage(xb, blocks), 3)
         plan = plain.stage_plan(h, w, c, p, n, 2)
+        # each block: 1x1 C->P, 3x3 P->P, 1x1 P->C, a multiply and an add per MAC;
+        # bytes: the bf16 input and output once, the f32 folded weights once
+        stage_ops = 2.0 * BATCH * h * w * (c * p + 9 * p * p + p * c) * n
+        stage_bytes = 2 * xb.numel() * 2 + sum(t.numel() * 4 for blk in blocks for t in blk)
         for name, fn in (("K5", k5_chain), ("K6", fused_stage_kernel)):
             got32 = fn(x, blocks)
             gotb = fn(xb, blocks).float()
@@ -606,7 +700,8 @@ def bottleneck_kernel_phase(device) -> list[dict]:
                    "bf16_max_abs_err": d.abs().max().item(),
                    "bf16_mean_rel": d.abs().mean().item() / scale,
                    "bf16_border_mean_rel": _border(d).abs().mean().item() / scale,
-                   "ms": cuda_ms(lambda: fn(xb, blocks), 10), "plain_ms": plain_ms}
+                   "ms": cuda_ms(lambda: fn(xb, blocks), 10), "plain_ms": plain_ms,
+                   "ops": stage_ops, "bytes": stage_bytes}
             rows[name].append(row)
             print(f"bottleneck {name} {stage} B={BATCH} {h}x{w} C={c} P={p} blocks={n}"
                   f"{' plan (g, th, tw) ' + str(plan) if name == 'K6' else ''}: f32 max_abs_err "
@@ -645,6 +740,8 @@ def bottleneck_kernel_phase(device) -> list[dict]:
                     "max_abs_err_f32": max(r["f32_max_abs_err"] for r in st),
                     "bf16_mean_rel": max(r["bf16_mean_rel"] for r in st),
                     "ms": sum(r["ms"] for r in st), "plain_ms": sum(r["plain_ms"] for r in st),
+                    "library_ms": None,   # no single PyTorch call computes a bottleneck
+                    **bound(sum(r["bytes"] for r in st), sum(r["ops"] for r in st), BF16_OPS_S),
                     "per_stage": rows[name]})
     return out
 
@@ -760,6 +857,257 @@ def fused_path(device, kernels: dict, card: str) -> dict:
     return result
 
 
+def group_kernel_phase(device, card: str) -> dict:
+    """K4 against its plain version (phase 10) at the training path's shapes
+    and at the CALD_TPU_ROI_FLM=0 inference shapes; K2 and K4 timed in turns."""
+    import torch
+
+    from cald_tpu_torch.ops import roi_align as plain
+    from cald_tpu_torch.ops.roi_align_cuda import (
+        roi_align_group_fwd_kernel, roi_align_train_fwd_kernel,
+    )
+
+    worst = {"f32": 0.0, "bf16_mode": 0.0, "bf16_features": 0.0}
+    for label, (feats, rois, valid) in (
+            (f"train B={TRAIN_BATCH} S={TRAIN_SAMPLES}", train_roi_inputs(device)),
+            (f"FLM=0 inference B={BATCH} N=1000", roi_inputs(device))):
+        levels = plain.roi_levels(rois, SCALES).contiguous()
+        feats_bf = [f.bfloat16() for f in feats]
+        want_f32 = plain.grouped_multi_scale_roi_align(
+            feats, rois, spatial_scales=SCALES, g=8, valid=valid, levels=levels)
+        for g, hi in ((2, True), (8, True), (8, False)):
+            k4 = lambda fs: roi_align_group_fwd_kernel(fs, rois, valid, levels, g=g, hi_prec=hi,
+                                                       spatial_scales=SCALES)
+            want = want_f32 if hi else plain.grouped_multi_scale_roi_align(
+                feats, rois, spatial_scales=SCALES, g=g, hi_prec=False, valid=valid,
+                levels=levels)
+            got, got_bf = k4(feats), k4(feats_bf)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            err_bf = (got_bf - want_f32).abs().max().item()
+            zero = max(got[~valid].abs().max().item(), got_bf[~valid].abs().max().item())
+            mode = "hi" if hi else "bf16"
+            tol = 1e-4 if hi else 5e-2
+            print(f"group kernel: {label} g={g} {mode}: f32 features max_abs_err={err:.3e} "
+                  f"against the plain {mode} mode (atol {tol:g}), bf16 features {err_bf:.3e} "
+                  f"against the plain f32 version (atol 5e-2), invalid max={zero}")
+            if not (err <= tol and err_bf <= 5e-2 and zero == 0.0):
+                raise AssertionError(f"K4 disagrees with its plain version ({label}, g={g}, {mode})")
+            worst["f32" if hi else "bf16_mode"] = max(worst["f32" if hi else "bf16_mode"], err)
+            worst["bf16_features"] = max(worst["bf16_features"], err_bf)
+
+    # the training shapes in bf16, g = 8 "hi" (phase 11's configuration): K2 and K4 in turns
+    feats, rois, valid = train_roi_inputs(device)
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    feats_bf = [f.bfloat16() for f in feats]
+    fns = {"K2": lambda: roi_align_train_fwd_kernel(feats_bf, rois, valid, levels,
+                                                    spatial_scales=SCALES),
+           "K4": lambda: roi_align_group_fwd_kernel(feats_bf, rois, valid, levels, g=8,
+                                                    hi_prec=True, spatial_scales=SCALES)}
+    times = {"K2": [], "K4": []}
+    for name in ("K2", "K4", "K4", "K2"):
+        times[name].append(cuda_ms(fns[name], 20))
+    plain_ms = cuda_ms(lambda: plain.grouped_multi_scale_roi_align(
+        feats_bf, rois, spatial_scales=SCALES, g=8, valid=valid, levels=levels), 3)
+    print(f"group kernel time, train B={TRAIN_BATCH} S={TRAIN_SAMPLES} bf16 g=8 (CUDA events, "
+          f"mean of 20, in turns K2 K4 K4 K2): K2 {times['K2'][0]:.4f} / {times['K2'][1]:.4f} ms, "
+          f"K4 {times['K4'][0]:.4f} / {times['K4'][1]:.4f} ms; plain K4 {plain_ms:.4f} ms "
+          f"on {card}")
+    level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
+    out_bytes = TRAIN_BATCH * TRAIN_SAMPLES * 49 * feats[0].shape[-1] * 4
+    return {"name": "roi_align_group_fwd", "route": "cuda",
+            "source": "cald_tpu_torch/csrc/roi_align.cu",
+            "replaces": "cald_tpu/ops/pallas_roi_align.py:323",
+            "max_abs_err": worst["bf16_features"], "max_abs_err_f32": worst["f32"],
+            "max_abs_err_bf16_mode": worst["bf16_mode"], "ms": sum(times["K4"]) / 2,
+            "plain_ms": plain_ms, "k2_ms_in_turns": times["K2"], "k4_ms_in_turns": times["K4"],
+            "library_ms": None,
+            **bound(level_bytes + out_bytes + roi_index_bytes(rois, valid, levels), n_ops,
+                    F32_OPS_S)}
+
+
+def trace_summary(path: str, top: int = 6) -> dict:
+    """Device time in a torch.profiler chrome trace: the union of the CUDA
+    kernels' intervals over the span of all traced events (the busy share),
+    and the kernels that took the most time."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel")
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    busy, end = 0.0, -math.inf
+    for a, b, _ in kernels:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for a, b, name in kernels:
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + (b - a) / 1e3
+    return {"span_ms": span / 1e3, "kernel_ms": busy / 1e3, "busy_share": busy / span,
+            "launches": len(kernels),
+            "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])}
+
+
+AL_TRAIN_IMAGES = 48
+AL_TEST_IMAGES = 16
+AL_IMAGE_HW = (375, 500)         # a typical VOC image
+
+
+def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
+    """The active-learning loop on the card (phase 11): R50-FPN trained from
+    a torchvision-layout backbone written here, CALD_TPU_ROI_GROUP=8, two
+    cycles on a synthetic VOC set; launch counts per stage; one score call
+    with CALD_TPU_ROI_FLM=0."""
+    import torch
+
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.cli.config import ALConfig
+    from cald_tpu_torch.convert.torchvision_import import backbone_state_dict
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.data.synthetic import make_learnable_voc
+    from cald_tpu_torch.data.voc import get_voc2007
+    from cald_tpu_torch.engine.checkpoint import load_checkpoint
+    from cald_tpu_torch.models.init import random_init_
+    from cald_tpu_torch.strategies.cald import CALDConfig, make_cald_score_fn, score_pool
+
+    train_root = make_learnable_voc(os.path.join(workdir, "train"), AL_TRAIN_IMAGES,
+                                    AL_IMAGE_HW, seed=SEED, image_format="npy")
+    test_root = make_learnable_voc(os.path.join(workdir, "test"), AL_TEST_IMAGES, AL_IMAGE_HW,
+                                   seed=SEED + 1, image_format="npy")
+    datasets = (get_voc2007(train_root, "trainval"), get_voc2007(test_root, "test"))
+    cfg = ALConfig(data_path=train_root, strategy="cald", augs="FCDR", cycles=2, epochs=1,
+                   batch_size=TRAIN_BATCH, init_num=16, budget_num=8, score_batch_size=BATCH,
+                   workers=4, print_freq=1, output_dir=os.path.join(workdir, "out"),
+                   profile_dir=os.path.join(workdir, "profile"),
+                   pretrained_backbone=os.path.join(workdir, "backbone.pt"),
+                   device=device.type).resolve()
+
+    # the backbone users would pass as ImageNet weights: the seeded init with
+    # its frozen norms calibrated on one batch of this data (phases 4 and 7)
+    num_classes = len(datasets[0].class_names)
+    model, _ = driver.build_model(cfg, num_classes)
+    random_init_(model, cfg.seed)
+    model.to(device)
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    groups = create_aspect_ratio_groups(datasets[0].aspect_ratios(),
+                                        cfg.aspect_ratio_group_factor)
+    calib = next(iter(driver._loaders(cfg, datasets[0], range(TRAIN_BATCH),
+                                      batch_size=TRAIN_BATCH, train=False, canvases=canvases,
+                                      group_ids=groups)))
+    calibrate_norms_(model, torch.from_numpy(calib.images).to(device),
+                     torch.from_numpy(calib.valid_hw).to(device))
+    torch.save(backbone_state_dict(model), cfg.pretrained_backbone)
+    del model
+
+    # launches by stage: training, evaluation, scoring
+    stage_counts = {"train": [], "eval": [], "score": []}
+    steps, detects, losses = [], [], []
+
+    def counted(stage, fn):
+        def run(*args, **kwargs):
+            before = {k: v.launches for k, v in kernels.items()}
+            out = fn(*args, **kwargs)
+            stage_counts[stage].append({k: v.launches - before[k] for k, v in kernels.items()})
+            return out
+        return run
+
+    orig_epoch, orig_detect = driver.train_one_epoch, driver.FasterRCNN.detect
+
+    def epoch_counting(step_fn, *args, **kwargs):
+        def step(*a):
+            m = step_fn(*a)
+            losses.append({k: float(v) for k, v in m.items()})
+            steps.append(1)
+            return m
+        return orig_epoch(step, *args, **kwargs)
+
+    def detect_counting(self, images, valid_hw):
+        detects.append(images.shape[0])
+        return orig_detect(self, images, valid_hw)
+
+    os.environ["CALD_TPU_ROI_GROUP"] = "8"
+    patches = {"train_cycle": counted("train", driver.train_cycle),
+               "evaluate": counted("eval", driver.evaluate),
+               "score_and_select": counted("score", driver.score_and_select),
+               "train_one_epoch": epoch_counting}
+    saved = {k: getattr(driver, k) for k in patches}
+    for k, v in patches.items():
+        setattr(driver, k, v)
+    driver.FasterRCNN.detect = detect_counting
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        history = driver.al_loop(cfg, datasets=datasets)
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        for k, v in saved.items():
+            setattr(driver, k, v)
+        driver.FasterRCNN.detect = orig_detect
+    n_detect = len(detects)
+
+    trace = trace_summary(os.path.join(cfg.profile_dir, "cycle_0_trace.json"))
+    print(f"al loop: cycle 0 under torch.profiler: {trace['kernel_ms']:.1f} ms of kernels in a "
+          f"{trace['span_ms']:.1f} ms trace, device busy share {trace['busy_share']:.4f}, "
+          f"{trace['launches']} kernels; the most time: " + "; ".join(
+              f"{v:.2f} ms {k}" for k, v in trace["top_ms"].items()))
+    for h in history:
+        print(f"al loop: cycle {h['cycle']}: labeled {h['labeled']}, mAP {h['eval']['mAP']:.4f}, "
+              f"AP50 {h['eval']['AP50']:.4f}; wall {h['time_s']:.2f} s (train "
+              f"{h['split_s']['train']:.2f}, eval {h['split_s']['eval']:.2f}, score "
+              f"{h['split_s']['score']:.2f}) on {card}")
+    print(f"al loop: {len(steps)} training steps, {n_detect} detects; launches by stage "
+          f"{json.dumps(stage_counts)}; total {launches}; {wall:.2f} s")
+    train_k = {k: sum(c[k] for c in stage_counts["train"]) for k in kernels}
+    infer_k = {k: sum(c[k] for st in ("eval", "score") for c in stage_counts[st])
+               for k in kernels}
+    if not (len(steps) > 0 and train_k["roi_align_group_fwd"] == len(steps)
+            and train_k["roi_align_bwd"] == len(steps) and train_k["roi_align_train_fwd"] == 0
+            and train_k["roi_align"] == 0):
+        raise AssertionError(f"training did not launch K4 and K3 once per step without K2: {train_k}")
+    if not (infer_k["roi_align"] == n_detect and infer_k["roi_align_group_fwd"] == 0
+            and infer_k["roi_align_train_fwd"] == 0):
+        raise AssertionError(f"evaluation and scoring did not launch K1 once per detect: {infer_k}")
+    if not all(math.isfinite(v) for d in losses for v in d.values()):
+        raise AssertionError("non-finite training losses")
+    # CALD's stage 2 (the reference's cls_kldiv) takes every candidate without
+    # detections first, so a detector that finds nothing takes all
+    # int(mr * budget) candidates: 9 for a budget of 8
+    picked = history[0]["labeled"] - cfg.init_num
+    if not (cfg.budget_num <= picked <= int(cfg.mr * cfg.budget_num)
+            and history[1]["labeled"] == history[0]["labeled"]):
+        raise AssertionError(f"the labeled set did not grow by the budget: {history}")
+    if not all(math.isfinite(h["eval"]["mAP"]) for h in history):
+        raise AssertionError("non-finite VOC mAP")
+    ckpt = os.path.join(cfg.output_dir, "cycle_0")
+    if not os.path.isfile(os.path.join(ckpt, "model.pt")):
+        raise AssertionError("cycle_0/ was not written")
+
+    # one score call through the window path: CALD_TPU_ROI_FLM=0, group 8
+    model, _ = driver.build_model(cfg, num_classes)
+    model.to(device)
+    load_checkpoint(ckpt, model)
+    score_fn = make_cald_score_fn(model, CALDConfig(), num_classes)
+    batch = next(iter(driver._loaders(cfg, datasets[0], range(BATCH), batch_size=BATCH,
+                                      train=False, canvases=canvases, group_ids=groups)))
+    os.environ["CALD_TPU_ROI_FLM"] = "0"
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        cons, _ = score_pool(score_fn, [batch], list(batch.image_idx),
+                             torch.Generator(device=device).manual_seed(SEED))
+        flm0 = {name: k.launches for name, k in kernels.items()}
+    finally:
+        os.environ.pop("CALD_TPU_ROI_FLM")
+        os.environ.pop("CALD_TPU_ROI_GROUP")
+    print(f"al loop: one score call with CALD_TPU_ROI_FLM=0: launches {flm0}, consistency "
+          f"{np.array2string(cons, precision=4)}")
+    if flm0["roi_align_group_fwd"] != 2 or flm0["roi_align"] != 0 or not np.isfinite(cons).all():
+        raise AssertionError("CALD_TPU_ROI_FLM=0 scoring did not run K4 twice without K1")
+    return {"history": history, "launches": launches, "steps": len(steps), "wall_s": wall,
+            "trace": trace}
+
+
 def main() -> int:
     import torch
 
@@ -769,12 +1117,15 @@ def main() -> int:
     from cald_tpu_torch.augment.suite import generator_draw
     from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
     from cald_tpu_torch.ops.roi_align_cuda import (
-        roi_align_bwd_kernel, roi_align_kernel, roi_align_train_fwd_kernel,
+        roi_align_bwd_kernel, roi_align_group_fwd_kernel, roi_align_kernel,
+        roi_align_train_fwd_kernel,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    os.environ.pop("CALD_TPU_PALLAS_BNECK", None)       # phase 9 sets the gate itself
+    for gate in ("CALD_TPU_PALLAS_BNECK", "CALD_TPU_ROI_GROUP", "CALD_TPU_ROI_GROUP_PREC",
+                 "CALD_TPU_ROI_FLM"):
+        os.environ.pop(gate, None)        # phases 9-11 set the gates themselves
     device = torch.device("cuda", 0)
     card = card_line()
     print(card)
@@ -783,8 +1134,9 @@ def main() -> int:
 
     kernels = (roi_align_kernel, roi_align_train_fwd_kernel, roi_align_bwd_kernel)
     all_kernels = {"roi_align": roi_align_kernel, "roi_align_train_fwd": roi_align_train_fwd_kernel,
-                   "roi_align_bwd": roi_align_bwd_kernel, "bottleneck_block": fused_block_kernel,
-                   "bottleneck_stage": fused_stage_kernel}
+                   "roi_align_bwd": roi_align_bwd_kernel,
+                   "roi_align_group_fwd": roi_align_group_fwd_kernel,
+                   "bottleneck_block": fused_block_kernel, "bottleneck_stage": fused_stage_kernel}
     # one nvcc per source, started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
@@ -792,7 +1144,7 @@ def main() -> int:
                               (roi_align_kernel, fused_block_kernel)))
     for k in all_kernels.values():
         k.load()
-    print(f"build: roi_align kernels (K1, K2, K3) ready in {built[0][1]:.2f} s, bottleneck "
+    print(f"build: roi_align kernels (K1, K2, K3, K4) ready in {built[0][1]:.2f} s, bottleneck "
           f"kernels (K5, K6) in {built[1][1]:.2f} s")
 
     kernel = kernel_phase(device)
@@ -831,7 +1183,14 @@ def main() -> int:
     bneck_kernels[0]["launches"] = fused["1"]["launches"]
     bneck_kernels[1]["launches"] = fused["stage"]["launches"]
 
-    print(json.dumps({"kernels": [kernel, *train_kernels, *bneck_kernels]}))
+    group_kernel = group_kernel_phase(device, card)
+    with tempfile.TemporaryDirectory() as workdir:
+        al = al_loop_phase(device, all_kernels, card, workdir)
+    group_kernel["launches"] = al["launches"]["roi_align_group_fwd"]
+    group_kernel["launches_per_step"] = al["launches"]["roi_align_group_fwd"] / al["steps"]
+
+    print(json.dumps({"kernels": [kernel, train_kernels[0], train_kernels[1], group_kernel,
+                                  *bneck_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

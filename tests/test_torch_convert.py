@@ -60,21 +60,34 @@ def test_unexpected_input_raises(bridged, bad):
         flax_to_state_dict(broken)
 
 
+# the modules of the AL loop (slice 4), each of which must import on its own
+AL_LOOP_MODULES = (
+    "cli.config", "cli.driver", "cli.main", "convert.torchvision_import", "data.batching",
+    "data.loader", "data.pool", "data.records", "data.synthetic", "data.transforms",
+    "data.voc", "engine.checkpoint", "engine.evaluate", "engine.voc_eval", "models.init",
+    "strategies.random_strategy")
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither JAX, Flax nor
-    the JAX package (the machine with the card has none of them)."""
+    the JAX package (the machine with the card has none of them), nor
+    Pillow (only the loader's JPEG/PNG decode asks for it, when it reads
+    such a file)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cald_tpu_torch\n"
         "for m in pkgutil.walk_packages(cald_tpu_torch.__path__, 'cald_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cald_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cald_tpu', 'PIL')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('cald_tpu_torch')]))\n")
+        "print(' '.join(m for m in sys.modules if m.startswith('cald_tpu_torch')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 35          # scoring, training and the fused backbone
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 53          # scoring, training, the fused backbone, the AL loop
+    assert {f"cald_tpu_torch.{m}" for m in AL_LOOP_MODULES} <= loaded
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -1,6 +1,7 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
-RoIAlign (K1 inference forward, K2 training forward, K3 training backward)
-and the fused bottlenecks (K5 one block, K6 a stage's stride-1 suffix).
+RoIAlign (K1 inference forward, K2 training forward, K3 training backward,
+K4 grouped training forward) and the fused bottlenecks (K5 one block, K6 a
+stage's stride-1 suffix).
 
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with an H100 and ``nvcc`` run them with ``python -m pytest tests/test_torch_cuda.py``.
@@ -12,8 +13,10 @@ import pytest
 import torch
 
 from cald_tpu_torch.ops import roi_align as plain
+from cald_tpu_torch.ops import roi_align_cuda
 from cald_tpu_torch.ops.roi_align_cuda import (
-    RoIAlignBackward, RoIAlignFunction, RoIAlignKernel, RoIAlignTrainForward,
+    RoIAlignBackward, RoIAlignFunction, RoIAlignGroupForward, RoIAlignKernel,
+    RoIAlignTrainForward,
 )
 
 pytestmark = pytest.mark.cuda
@@ -125,6 +128,71 @@ def test_train_kernels_match_plain(train_kernels, c, dtype):
         for g, w in zip(got_g, want_g):
             g = g.to(dtype).float()
             assert ((g - w).abs() <= 5e-2 + 1e-2 * w.abs()).all()
+
+
+@pytest.fixture(scope="module")
+def group_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return RoIAlignGroupForward()
+
+
+@pytest.mark.parametrize("hi", [True, False], ids=["hi", "bf16"])
+@pytest.mark.parametrize("g", [1, 2, 5, 8])
+@pytest.mark.parametrize("c", [256, 33])
+def test_group_kernel_matches_plain(group_kernel, c, g, hi):
+    """K4 against its plain version in the same mode on f32 features (atol
+    1e-4 "hi"; 5e-2 "bf16", where a t on a rounding boundary may round the
+    other way), bf16 features against the plain f32 version (atol 5e-2);
+    64 rois per image, so g = 5 leaves a short last group; invalid rois are
+    exactly 0."""
+    feats, rois, valid = _inputs(c)
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    args = dict(spatial_scales=SCALES, valid=valid, levels=levels)
+    want = plain.grouped_multi_scale_roi_align(feats, rois, g=g, hi_prec=hi, **args)
+    want_f32 = plain.grouped_multi_scale_roi_align(feats, rois, g=g, **args)
+    got = group_kernel(feats, rois, valid, levels, g=g, hi_prec=hi, spatial_scales=SCALES)
+    got_bf = group_kernel([f.bfloat16() for f in feats], rois, valid, levels, g=g, hi_prec=hi,
+                          spatial_scales=SCALES)
+    torch.cuda.synchronize()
+    assert got.dtype == got_bf.dtype == torch.float32
+    assert (got - want).abs().max().item() < (1e-4 if hi else 5e-2)
+    assert (got_bf - want_f32).abs().max().item() < 5e-2
+    assert got[~valid].abs().max().item() == 0.0 and got_bf[~valid].abs().max().item() == 0.0
+
+
+def test_group_launch_count_and_bad_input(group_kernel):
+    feats, rois, valid = _inputs(64)
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    before = group_kernel.launches
+    group_kernel(feats, rois, valid, levels, g=4, hi_prec=True, spatial_scales=SCALES)
+    assert group_kernel.launches == before + 1
+    with pytest.raises(ValueError):
+        group_kernel(feats, rois, valid, levels, g=0, hi_prec=True, spatial_scales=SCALES)
+    with pytest.raises(ValueError):
+        group_kernel(feats, rois, valid, levels.long(), g=4, hi_prec=True,
+                     spatial_scales=SCALES)
+    with pytest.raises(TypeError):
+        group_kernel([f.half() for f in feats], rois, valid, levels, g=4, hi_prec=True,
+                     spatial_scales=SCALES)
+    assert group_kernel.launches == before + 1
+
+
+def test_function_routes_to_group_kernel(group_kernel, monkeypatch):
+    """With CALD_TPU_ROI_GROUP=4 and 64 rois per image the training forward
+    launches K4 (not K2) and the backward K3."""
+    monkeypatch.setenv("CALD_TPU_ROI_GROUP", "4")
+    feats, rois, valid = _inputs(64)
+    feats = [f.requires_grad_() for f in feats]
+    ks = (roi_align_cuda.roi_align_group_fwd_kernel, roi_align_cuda.roi_align_train_fwd_kernel,
+          roi_align_cuda.roi_align_bwd_kernel)
+    before = [k.launches for k in ks]
+    out = RoIAlignFunction.apply(rois, valid, tuple(SCALES), 7, 2, *feats)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(ks, before)] == [1, 0, 1]
 
 
 def test_train_kernels_invalid_rois_add_nothing(train_kernels):
