@@ -88,6 +88,7 @@ def _check_supported(cfg: ALConfig):
         raise NotImplementedError(f"--norm {cfg.norm} is not ported yet (ROADMAP slice 6)")
     if cfg.score_shrink_slice:
         raise NotImplementedError("--score-shrink-slice is not ported yet (ROADMAP slice 6)")
+    expand_aug_string(cfg.augs)            # refuses the photometric codes
 
 
 def build_datasets(cfg: ALConfig):

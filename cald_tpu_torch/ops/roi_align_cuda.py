@@ -18,7 +18,10 @@ for autograd (the detector applies it in
 device of the tensors it is given: for CPU tensors it runs the plain version
 (``ops/roi_align.py``); for CUDA tensors it launches its kernel or raises. The kernels are compiled with
 ``nvcc`` for ``sm_90a`` at first launch (``ops/cuda_build.py``); importing
-this module builds nothing.
+this module builds nothing. K1, K2 and K3 move 16 bytes of channels a lane
+when C is a multiple of the vector width (8 bf16 or 4 f32 channels) and
+every level and output is 16-byte aligned, else one channel a lane: the
+kernel source picks the path from the shapes and pointers it is given.
 
 The forwards' output equals the TPU kernels' (K1's pooled slots gathered back
 by ``slot_of_roi``): (B, N, 7, 7, C) in proposal order, with zeros for invalid
@@ -55,6 +58,15 @@ def _check_rois(rois, valid, levels, b: int):
         if (t.shape != (b, n) or t.dtype != dt or not t.is_contiguous()
                 or t.device != rois.device):
             raise ValueError(f"roi_align: {name} must be a contiguous (B, N) {dt} tensor")
+
+
+def _check_sizes(output_size: int, sampling_ratio: int, max_sr: int):
+    """The kernels' limits: one warp per output row (K1, K2), a bin's taps
+    unrolled (K1, K2: sampling ratio up to 4), the taps' plan in shared
+    memory (K3: up to 8)."""
+    if not (1 <= output_size <= 8 and 1 <= sampling_ratio <= max_sr):
+        raise ValueError(f"roi_align: the kernel takes output_size 1..8 and sampling_ratio "
+                         f"1..{max_sr}, not {output_size} and {sampling_ratio}")
 
 
 def _check_levels(feats, rois, spatial_scales, dtypes=_DTYPES):
@@ -101,6 +113,7 @@ class RoIAlignKernel(_Entry):
             return plain.multi_scale_roi_align(
                 feats, rois, spatial_scales=spatial_scales, valid=valid, levels=levels,
                 output_size=output_size, sampling_ratio=sampling_ratio)
+        _check_sizes(output_size, sampling_ratio, 4)
         return _forward(self, feats, rois, valid, levels.contiguous(), spatial_scales,
                         output_size, sampling_ratio, feats[0].dtype)
 
@@ -122,6 +135,7 @@ class RoIAlignTrainForward(_Entry):
                 feats, rois, spatial_scales=spatial_scales, valid=valid, levels=levels,
                 output_size=output_size, sampling_ratio=sampling_ratio,
                 out_dtype=torch.float32)
+        _check_sizes(output_size, sampling_ratio, 4)
         return _forward(self, feats, rois, valid, levels, spatial_scales, output_size,
                         sampling_ratio, torch.float32)
 
@@ -184,6 +198,7 @@ class RoIAlignBackward(_Entry):
             return plain.multi_scale_roi_align_backward(
                 grad_out, rois, valid, levels, level_shapes, spatial_scales=spatial_scales,
                 output_size=output_size, sampling_ratio=sampling_ratio)
+        _check_sizes(output_size, sampling_ratio, 8)
         grads = [torch.zeros(tuple(s), dtype=torch.float32, device=rois.device)
                  for s in level_shapes]
         _check_levels(grads, rois, spatial_scales, {torch.float32: 0})

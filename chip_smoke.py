@@ -7,12 +7,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. card: ``nvidia-smi`` name and power limit, torch version, device name;
      exits non-zero at once when CUDA is unavailable (there is no CPU path);
   2. build: compiles the Hopper kernels from ``cald_tpu_torch/csrc``, one
-     ``nvcc`` per source, started together: ``roi_align.cu`` (K1, K2, K3)
-     and ``bottleneck.cu`` (K5, K6);
+     ``nvcc`` per source, started together: ``roi_align.cu`` (K1-K4) and
+     ``bottleneck.cu`` (K5, K6);
   3. kernel: K1 against its plain PyTorch version at the scoring path's
      shapes (B=8, N=1000, P2..P5 of a 640x1024 canvas, C=256), f32 with TF32
      off (atol 1e-4) and bf16 against the f32 plain version (atol 5e-2);
-     invalid rois must be exactly 0; prints both times;
+     invalid rois must be exactly 0; prints the kernel's time before and
+     after the plain version's (the first is the card's first work after the
+     build) and the plain version's;
   4. scoring path: Faster R-CNN R50-FPN, 21 classes, RPN 1000/1000, bf16,
      seeded random weights, scores a pool of 2 batches of 8 images (640x1024
      canvas, 600x1000 valid) through make_cald_score_fn -> score_pool ->
@@ -27,7 +29,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      about 25% invalid slots): f32 with TF32 off (atol 1e-4; K3's atomics
      add in an order that changes from run to run) and bf16 features against
      the f32 plain versions (atol 5e-2, K3 also 1e-2 relative); invalid rois
-     give exactly 0 and add nothing to the gradient; prints both times;
+     give exactly 0 and add nothing to the gradient; prints both times, and
+     K3's on uniform rois like phase 3's (B=4, 512 per image), which overlap
+     less than the training rois;
   7. training path: a fresh R50-FPN (21 classes, bf16, the same seeded init
      and norm calibration, heads not amplified), batch 4 on the canvas with
      1-8 seeded gt boxes per image in 64 slots, RPN 2000/2000, samplers
@@ -248,13 +252,17 @@ def kernel_phase(device) -> dict:
     err_bf16 = (got_bf.float() - want)[valid].abs().max().item()
     zero_bf16 = got_bf[~valid].float().abs().max().item()
 
-    ms = cuda_ms(lambda: roi_align_kernel(feats_bf, rois, valid, spatial_scales=scales), 20)
+    # the kernel is timed before and after the plain version's calls: the
+    # first timing is the card's first work after the build
+    k1 = lambda: roi_align_kernel(feats_bf, rois, valid, spatial_scales=scales)
+    ms_first = cuda_ms(k1, 20)
     plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align(
         feats_bf, rois, spatial_scales=scales, valid=valid), 5)
+    ms = cuda_ms(k1, 20)
     print(f"kernel: roi_align B={BATCH} N=1000 C=256 valid={int(valid.sum())}: "
           f"f32 max_abs_err={err_f32:.3e} (atol 1e-4), bf16 max_abs_err={err_bf16:.3e} "
-          f"(atol 5e-2), invalid max={max(zero_f32, zero_bf16)}; bf16 kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+          f"(atol 5e-2), invalid max={max(zero_f32, zero_bf16)}; bf16 kernel {ms_first:.4f} ms "
+          f"first, {ms:.4f} ms after the plain version, plain {plain_ms:.4f} ms")
     if not (err_f32 <= 1e-4 and err_bf16 <= 5e-2 and zero_f32 == 0.0 and zero_bf16 == 0.0):
         raise AssertionError("roi_align kernel disagrees with its plain version")
     levels = plain.roi_levels(rois, scales)
@@ -262,7 +270,8 @@ def kernel_phase(device) -> dict:
     # no single PyTorch call computes RoIAlign (torchvision is not a dependency)
     return {"name": "roi_align", "route": "cuda", "source": "cald_tpu_torch/csrc/roi_align.cu",
             "replaces": "cald_tpu/ops/flm_roi_align.py:123", "max_abs_err": err_bf16,
-            "max_abs_err_f32": err_f32, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "max_abs_err_f32": err_f32, "ms": ms, "ms_first": ms_first, "plain_ms": plain_ms,
+            "library_ms": None,
             **bound(level_bytes + got_bf.numel() * 2 + roi_index_bytes(rois, valid, levels),
                     n_ops, F32_OPS_S)}
 
@@ -358,12 +367,17 @@ def train_kernel_phase(device) -> list[dict]:
     bwd_ms = cuda_ms(lambda: bwd(cot), 20)
     bwd_plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align_backward(
         cot, rois, valid, levels, shapes, spatial_scales=SCALES), 5)
+    _, u_rois, u_valid = roi_inputs(device, b=TRAIN_BATCH, n=TRAIN_SAMPLES, c=1)
+    u_levels = plain.roi_levels(u_rois, SCALES).contiguous()
+    bwd_uniform_ms = cuda_ms(lambda: roi_align_bwd_kernel(
+        cot, u_rois, u_valid, u_levels, shapes, spatial_scales=SCALES), 20)
     print(f"train kernels: B={TRAIN_BATCH} S={TRAIN_SAMPLES} C=256 valid={int(valid.sum())}: "
           f"K2 f32 max_abs_err={fwd_f32:.3e} (atol 1e-4), bf16 {fwd_bf16:.3e} (atol 5e-2); "
           f"K3 f32 max_abs_err={bwd_f32:.3e} (atol 1e-4), bf16 {bwd_bf16:.3e} (atol 5e-2 + "
           f"1e-2 rel); invalid out max={zero}, invalid-only gradient max={dead_max}")
     print(f"train kernels: K2 bf16 {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms; "
-          f"K3 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms")
+          f"K3 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; K3 on uniform rois "
+          f"{bwd_uniform_ms:.4f} ms")
     if not (fwd_f32 <= 1e-4 and fwd_bf16 <= 5e-2 and bwd_f32 <= 1e-4 and bwd_bf16_ok
             and zero == 0.0 and dead_max == 0.0):
         raise AssertionError("a training RoIAlign kernel disagrees with its plain version")
@@ -381,7 +395,7 @@ def train_kernel_phase(device) -> list[dict]:
             {"name": "roi_align_bwd", "route": "cuda", "source": src,
              "replaces": "cald_tpu/ops/pallas_roi_align.py:534", "max_abs_err": bwd_bf16,
              "max_abs_err_f32": bwd_f32, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-             "library_ms": None, **bwd_bound}]
+             "ms_uniform_rois": bwd_uniform_ms, "library_ms": None, **bwd_bound}]
 
 
 # the gains of tests/test_golden_parity.py, so that a random detector's scores

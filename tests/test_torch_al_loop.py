@@ -295,6 +295,23 @@ def test_unported_options_raise(voc):
         driver.build_datasets(_cfg(voc["npy"], dataset="coco").resolve())
 
 
+@pytest.mark.parametrize("augs", ["FCDRGS", "FCDRG", "S"])
+def test_unported_aug_codes_raise_before_any_work(augs, monkeypatch):
+    """--augs with 'G' or 'S' is refused by _check_supported, so al_loop
+    raises before it reads a dataset; 'FCDR' passes."""
+    cfg = _cfg("unused", augs=augs).resolve()
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        driver._check_supported(cfg)
+
+    def no_work(*_):
+        raise AssertionError("al_loop started work")
+
+    monkeypatch.setattr(driver, "build_datasets", no_work)
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        driver.al_loop(cfg)
+    driver._check_supported(_cfg("unused", augs="FCDR").resolve())
+
+
 def test_stream_generators_are_seeded():
     a = driver.stream_generator(torch.device("cpu"), 17, 1)
     b = driver.stream_generator(torch.device("cpu"), 17, 1)

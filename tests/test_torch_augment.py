@@ -13,6 +13,7 @@ from cald_tpu.augment.geometry import horizontal_flip as jflip
 from cald_tpu.augment.geometry import resize_image_boxes as jresize
 from cald_tpu.augment.geometry import rotate_image_boxes as jrotate
 from cald_tpu.augment.suite import build_aug_batch as jbuild_aug_batch
+from cald_tpu.augment.suite import expand_aug_string as jexpand_aug_string
 from cald_tpu_torch.augment import cutout, geometry, suite
 from tests.torch_helpers import to_np
 
@@ -99,3 +100,20 @@ def test_build_aug_batch_fcdr(batch):
     assert names == ["flip", "cut_out", "smaller_resize", "rotation"]
     assert got[0].shape == (2, 4, 96, 128, 3)
     _check(got, want)
+
+
+@pytest.mark.parametrize("augs", ["FCDRGS", "GS", "G", "FXS"])
+def test_expand_aug_string_refuses_unported_codes(augs):
+    """The reference's photometric codes are refused, each one named, where
+    dropping them would score with fewer augs than JAX."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 1") as err:
+        suite.expand_aug_string(augs)
+    for ch in "GS":
+        assert (repr(ch) in str(err.value)) == (ch in augs)
+
+
+@pytest.mark.parametrize("augs", ["FCDR", "RDCF", "FC", "FX", "", "xyzD"])
+def test_expand_aug_string_matches_jax(augs):
+    """Ported codes give JAX's list in JAX's order; a code unknown to both
+    is ignored by both."""
+    assert suite.expand_aug_string(augs) == jexpand_aug_string(augs)

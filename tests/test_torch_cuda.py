@@ -65,13 +65,75 @@ def test_kernel_matches_plain_f32(kernel, c):
     assert got[~valid].abs().max().item() == 0.0
 
 
-def test_kernel_matches_plain_bf16(kernel):
-    feats, rois, valid = _inputs(256)
+@pytest.mark.parametrize("c", [256, 96, 33])
+def test_kernel_matches_plain_bf16(kernel, c):
+    """C=256 and 96 take the 16-byte vector path (96: a partial warp), 33
+    the scalar path."""
+    feats, rois, valid = _inputs(c)
     got = kernel([f.bfloat16() for f in feats], rois, valid, spatial_scales=SCALES)
     want = plain.multi_scale_roi_align(feats, rois, spatial_scales=SCALES, valid=valid)
     assert got.dtype == torch.bfloat16
     # bf16 features and output against the f32 plain version
     assert (got.float() - want).abs().max().item() < 5e-2
+    assert got[~valid].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_all_rois_invalid(kernel, dtype):
+    """Every roi invalid: the kernel writes zeros everywhere (the output
+    starts as uninitialised memory) and reads no level."""
+    feats, rois, valid = _inputs(256)
+    got = kernel([f.to(dtype) for f in feats], rois, torch.zeros_like(valid),
+                 spatial_scales=SCALES)
+    torch.cuda.synchronize()
+    assert got.abs().max().item() == 0.0
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+ODD_SHAPES = ((39, 63), (20, 31), (10, 15), (5, 7))
+
+
+@pytest.mark.parametrize("case", ["offset", "odd_c36", "odd_c34"])
+def test_unaligned_levels_match_plain(kernel, case):
+    """Levels the 16-byte path cannot take: a level that starts off a
+    16-byte boundary (C=256), and odd level sizes with C=36 or 34, so that
+    an image's level starts off a 16-byte boundary in bf16. K1 (f32 and bf16)
+    and K3 (C=36 in f32 takes the vector path, C=34 or an unaligned gradient
+    the scalar one) against their plain versions at today's tolerances."""
+    c = {"offset": 256, "odd_c36": 36, "odd_c34": 34}[case]
+    rng = np.random.default_rng(5)
+    shapes = SHAPES if case == "offset" else ODD_SHAPES
+    feats, rois, valid = _inputs(c)
+    feats = [torch.from_numpy(rng.normal(0, 1, (2, h, w, c)).astype(np.float32)).cuda()
+             for h, w in shapes]
+    want = plain.multi_scale_roi_align(feats, rois, spatial_scales=SCALES, valid=valid)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        kf = [f.to(dtype) for f in feats]
+        if case == "offset":
+            kf[1] = _misaligned(kf[1])
+        got = kernel(kf, rois, valid, spatial_scales=SCALES)
+        torch.cuda.synchronize()
+        assert (got.float() - want).abs().max().item() < tol
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    cot = torch.randn((*rois.shape[:2], 7, 7, c), generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    want_g = plain.multi_scale_roi_align_backward(cot, rois, valid, levels,
+                                                  [f.shape for f in feats],
+                                                  spatial_scales=SCALES)
+    got_g = roi_align_cuda.roi_align_bwd_kernel(
+        _misaligned(cot) if case == "offset" else cot, rois, valid, levels,
+        [f.shape for f in feats], spatial_scales=SCALES)
+    torch.cuda.synchronize()
+    for g, w in zip(got_g, want_g):
+        assert (g - w).abs().max().item() < 1e-4
 
 
 def test_launch_count_and_bad_input(kernel):
@@ -83,6 +145,8 @@ def test_launch_count_and_bad_input(kernel):
         kernel([f.permute(0, 2, 1, 3) for f in feats], rois, valid, spatial_scales=SCALES)
     with pytest.raises(TypeError):
         kernel([f.half() for f in feats], rois, valid, spatial_scales=SCALES)
+    with pytest.raises(ValueError):
+        kernel(feats, rois, valid, spatial_scales=SCALES, sampling_ratio=5)
     assert kernel.launches == before + 1
 
 
@@ -193,6 +257,36 @@ def test_function_routes_to_group_kernel(group_kernel, monkeypatch):
     out.sum().backward()
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(ks, before)] == [1, 0, 1]
+
+
+@pytest.mark.parametrize("case", ["identical", "one_pixel"])
+def test_backward_dense_overlap(train_kernels, case):
+    """K3 where many rois add into the same pixels at once: 64 identical rois
+    in one image; and rois whose footprint is one pixel at their level (every
+    sample of every bin on the same 2x2 pixels), 64 of them on an 8x8 grid of
+    spots 3 image pixels apart, so that neighbours share level pixels. f32
+    atol 1e-4."""
+    _, bwd = train_kernels
+    feats, rois, valid = _inputs(256, n=64)
+    rois = rois.clone()
+    if case == "identical":
+        rois[0] = rois.new_tensor([60.0, 40.0, 130.0, 110.0])
+    else:
+        i = torch.arange(64, device="cuda", dtype=torch.float32)
+        x, y = 100.0 + 3.0 * (i % 8), 60.0 + 3.0 * (i // 8)
+        rois[0] = torch.stack([x, y, x + 0.2, y + 0.3], -1)
+    valid = valid.clone()
+    valid[0] = True
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    cot = torch.randn((*rois.shape[:2], 7, 7, 256), generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    shapes = [f.shape for f in feats]
+    want = plain.multi_scale_roi_align_backward(cot, rois, valid, levels, shapes,
+                                                spatial_scales=SCALES)
+    got = bwd(cot, rois, valid, levels, shapes, spatial_scales=SCALES)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() < 1e-4
 
 
 def test_train_kernels_invalid_rois_add_nothing(train_kernels):

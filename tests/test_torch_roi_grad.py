@@ -153,3 +153,75 @@ def test_function_cpu_route_is_the_plain_versions(rng):
     assert torch.equal(again, out.detach())
     assert (roi_align_train_fwd_kernel.launches, roi_align_bwd_kernel.launches) == before
     assert roi_align_train_fwd_kernel._fn is None and roi_align_bwd_kernel._fn is None
+
+
+def _separable_backward(cot, rois, valid, levels, level_shapes, out=7, sr=2):
+    """K3's formulation (``csrc/roi_align.cu``), in torch: per valid roi, the
+    pooled taps of each axis ("hi" mode) regrouped by distinct pixel into
+    Wy (S, nu) and Wx (S, nv), then one add per distinct pixel of the roi's
+    footprint, dF[u, v] = sum_y sum_x Wy[y, u] * Wx[x, v] * g[y, x]. Returns
+    the level gradients and the number of adds."""
+    grads = [torch.zeros(tuple(s)) for s in level_shapes]
+    adds = 0
+
+    def by_pixel(pix, wt):
+        uniq = torch.unique(pix[wt != 0])              # ascending
+        w = torch.zeros(out, len(uniq))
+        for y in range(out):
+            for k in range(2 * sr):
+                if wt[y, k] != 0:
+                    w[y, torch.searchsorted(uniq, pix[y, k])] = wt[y, k]
+        return uniq, w
+
+    for i in range(rois.shape[0]):
+        for j in range(rois.shape[1]):
+            if not valid[i, j]:
+                continue
+            lv = int(levels[i, j])
+            h, w, scale = level_shapes[lv][1], level_shapes[lv][2], SCALES[lv]
+            x1, y1 = rois[i, j, 0] * scale, rois[i, j, 1] * scale
+            rw = (rois[i, j, 2] * scale - x1).clamp_min(1.0)
+            rh = (rois[i, j, 3] * scale - y1).clamp_min(1.0)
+            rows, wy = plain._pooled_taps(y1[None], rh[None], torch.tensor([float(h)]), out, sr,
+                                          False)
+            cols, wx = plain._pooled_taps(x1[None], rw[None], torch.tensor([float(w)]), out, sr,
+                                          False)
+            ru, wy_u = by_pixel(rows[0], wy[0])
+            cu, wx_v = by_pixel(cols[0], wx[0])
+            d = torch.einsum("yu,xv,yxc->uvc", wy_u, wx_v, cot[i, j])
+            grads[lv][i, ru[:, None], cu[None, :]] += d
+            adds += d.shape[0] * d.shape[1]
+    return grads, adds
+
+
+def test_separable_backward_matches_plain_and_jax(rng):
+    """K3's merged form equals the corner scatter and jax.grad of the JAX
+    points path (f32, atol 1e-5) on border-crossing, tiny, one-pixel,
+    overlapping (a roi repeated and jittered) and invalid rois, with one add
+    per distinct footprint pixel: fewer than the 784 corner adds of a roi."""
+    feats = _feats(rng, 2, 8)
+    rois = np.stack([_rois(rng, 12, wide=True), _rois(rng, 12)])
+    rois[1, :4] = [[30.0, 30.0, 30.2, 30.3], rois[0, 0], rois[0, 0],
+                   rois[0, 0] + [1.5, -0.5, 2.0, 1.0]]
+    rois[0, 6:8] = rois[0, 5]
+    valid = rng.uniform(size=(2, 12)) > 0.25
+    valid[:, :8] = True
+    cot = rng.normal(0, 1, (2, 12, 7, 7, 8)).astype(np.float32)
+    tr, tv, tc = T(rois), T(valid), T(cot)
+    levels = plain.roi_levels(tr, SCALES)
+    shapes = [f.shape for f in feats]
+    got, adds = _separable_backward(tc, tr, tv, levels, shapes)
+    assert adds < 784 * int(valid.sum())
+    want = plain.multi_scale_roi_align_backward(tc, tr, tv, levels, shapes,
+                                                spatial_scales=SCALES)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(to_np(g), to_np(w), atol=1e-5, rtol=0)
+
+    def jfwd(fs):
+        return jax.vmap(lambda *fr: jmsra(list(fr[:-1]), fr[-1], spatial_scales=SCALES,
+                                           method="points"))(*fs, jnp.asarray(rois))
+
+    jcot = cot * valid[..., None, None, None]
+    want_j = jax.grad(lambda fs: jnp.sum(jfwd(fs) * jcot))(tuple(jnp.asarray(f) for f in feats))
+    for g, w in zip(got, want_j):
+        np.testing.assert_allclose(to_np(g), np.asarray(w), atol=1e-5, rtol=0)
