@@ -35,7 +35,17 @@ SMEM_BYTES = 232448
 SMEM_BYTES_TWO_PER_SM = 233472 // 2 - 1024
 # row padding of every shared-memory buffer of the kernels, in elements
 SMEM_PAD = 8
+# the bf16 kernel's ring of weight (and block-0 input) k-slabs: stages x rows
+# x (k + pad) elements (csrc/bottleneck.cu: kStages, kRingRows, kBK)
+RING_STAGES, RING_ROWS, RING_K = 2, 192, 64
+RING_BYTES = RING_STAGES * RING_ROWS * (RING_K + SMEM_PAD) * 2
 TILE_SIDES = (1, 2, 4, 8, 16, 32)
+# K5's fastest bf16 tiles at R50's four stride-1 suffixes on the 640x1024
+# canvas, B=8, on the H100 (bottleneck_turns.py --sweep, PERF.md): (C, P) ->
+# (th, tw). Layer4's 8x8 runs 96 thread blocks, fewer than the SMs, and
+# still wins: each block streams all 8.9 MB of the weights from L2.
+MEASURED_TILES = {(256, 64): (8, 16), (512, 128): (8, 8), (1024, 256): (8, 4),
+                  (2048, 512): (8, 8)}
 
 
 def fold_frozen(weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor):
@@ -69,8 +79,9 @@ def fused_stage(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
 # One thread block of the kernels computes g chained blocks on a th x tw
 # output tile read with a g-pixel halo. Its shared memory holds, each row
 # padded by SMEM_PAD elements and each buffer rounded up to 16 bytes: y1 over
-# the haloed tile, z over the tile plus (g - 1) pixels, and for g > 1 the
-# inter-block activation over the same area (C channels).
+# the haloed tile, z over the tile plus (g - 1) pixels, for g > 1 the
+# inter-block activation over the same area (C channels), and in bf16 the
+# ring of k-slabs.
 
 
 def smem_bytes(th: int, tw: int, g: int, c: int, p: int, itemsize: int) -> int:
@@ -78,7 +89,9 @@ def smem_bytes(th: int, tw: int, g: int, c: int, p: int, itemsize: int) -> int:
     sec = lambda n: -(-n * itemsize // 16) * 16
     inner = (th + 2 * g - 2) * (tw + 2 * g - 2)
     x = sec(inner * (c + SMEM_PAD)) if g > 1 else 0
-    return x + sec((th + 2 * g) * (tw + 2 * g) * (p + SMEM_PAD)) + sec(inner * (p + SMEM_PAD))
+    ring = RING_BYTES if itemsize == 2 else 0
+    return (x + sec((th + 2 * g) * (tw + 2 * g) * (p + SMEM_PAD)) + sec(inner * (p + SMEM_PAD))
+            + ring)
 
 
 def pick_tile(h: int, w: int, c: int, p: int, g: int, itemsize: int,
@@ -101,10 +114,15 @@ def pick_tile(h: int, w: int, c: int, p: int, g: int, itemsize: int,
 
 
 def block_tile(h: int, w: int, c: int, p: int, itemsize: int) -> tuple[int, int]:
-    """(th, tw) of one block per launch (K5, and a K6 group of 1): the best
-    tile that lets two thread blocks share an SM (25-30% faster at R50's
-    suffixes on the H100 than tiles of up to 227 KB, PERF.md), else the best
-    that fits. Raises if no tile fits."""
+    """(th, tw) of one block per launch (K5, and a K6 group of 1). In bf16 at
+    R50's widths, the measured tile (MEASURED_TILES) where it is no larger
+    than the image needs; else the best tile that lets two thread blocks
+    share an SM (25-30% faster than larger tiles at R50's suffixes in the
+    pointer-row kernel, PERF.md), else the best that fits. Raises if no tile
+    fits."""
+    t = MEASURED_TILES.get((c, p)) if itemsize == 2 else None
+    if t is not None and t[0] < 2 * h and t[1] < 2 * w:
+        return t
     t = (pick_tile(h, w, c, p, 1, itemsize, SMEM_BYTES_TWO_PER_SM)
          or pick_tile(h, w, c, p, 1, itemsize))
     if t is None:

@@ -70,7 +70,11 @@ class _Entry(KernelEntry):
     source = CSRC / "bottleneck.cu"
 
     def _run(self, x: torch.Tensor, blocks, th: int, tw: int, *extra) -> torch.Tensor:
-        weights = _kernel_weights(x, blocks, self.symbol)
+        return self.launch_staged(x, _kernel_weights(x, blocks, self.symbol), th, tw, *extra)
+
+    def launch_staged(self, x: torch.Tensor, weights, th: int, tw: int, *extra) -> torch.Tensor:
+        """One launch on weights already in the kernel's layout
+        (``_kernel_weights``); ``extra`` is K6's g."""
         b, c, h, w = x.shape
         out = torch.empty_like(x, memory_format=torch.channels_last)
         self._launch(x.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in weights], b, h, w,

@@ -50,8 +50,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
      folded weights: f32 with TF32 off (max abs error <= 1e-4 of the
      output's largest magnitude) and bf16 against the f32 plain version
      (mean relative error < 0.03 overall and on the border); one block with
-     b1 = 1.0 (border mean < 0.02, max < 0.15 of the mean magnitude);
-     kernel and plain times per stage and K6's plan;
+     b1 = 1.0 (border mean < 0.02, max < 0.15 of the mean magnitude); per
+     stage, K5's tile and K6's plan with their grids, the kernels' time on
+     weights restaged once and through the wrappers (which restage the
+     folded weights into the kernels' layout in every call), the restaging
+     alone, the plain version's time and, as a yardstick the port never
+     calls, the same folded blocks as three bf16 channels-last cuDNN
+     convolutions with bias, ReLU and the add (``cudnn_chain_ms``);
   9. fused scoring path: a fresh R50-FPN as in phase 4 (gate off while its
      norms are calibrated), then with CALD_TPU_PALLAS_BNECK "1" and "stage":
      the pool of phase 4 scored and checked as there, launches per score
@@ -87,8 +92,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      that cycle) the device busy share and the kernels that took the most.
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
-K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9), its time and its plain
-version's, its bound (the larger of its bytes over 3.35 TB/s and its
+K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9), its time (K5 and K6: on
+weights restaged once; ``ms_with_restaging`` through the wrappers) and its
+plain version's, its bound (the larger of its bytes over 3.35 TB/s and its
 operations over the peak of their type, from this run's inputs) and
 ``library_ms`` null: no single PyTorch call computes RoIAlign or a
 bottleneck.
@@ -676,13 +682,28 @@ def _border(t):
                       t[:, :, :, -1].flatten()])
 
 
-def bottleneck_kernel_phase(device) -> list[dict]:
+def cudnn_chain(x, blocks):
+    """The yardstick of phase 8, never called by the port: each folded block
+    as three cuDNN convolutions in x's dtype, channels-last, with bias, ReLU
+    and the identity add."""
+    import torch.nn.functional as F
+
+    for w1, b1, w2, b2, w3, b3 in blocks:
+        y = F.relu(F.conv2d(x, w1, b1))
+        y = F.relu(F.conv2d(y, w2, b2, padding=1))
+        x = F.relu(F.conv2d(y, w3, b3) + x)
+    return x
+
+
+def bottleneck_kernel_phase(device, card: str) -> list[dict]:
     """K5 and K6 against their plain versions at R50's four suffixes, B=8
     (phase 8)."""
     import torch
 
     from cald_tpu_torch.ops import bottleneck as plain
-    from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
+    from cald_tpu_torch.ops.bottleneck_cuda import (
+        _kernel_weights, fused_block_kernel, fused_stage_kernel,
+    )
 
     def k5_chain(x, blocks):
         for b in blocks:
@@ -699,12 +720,40 @@ def bottleneck_kernel_phase(device) -> list[dict]:
         xb = x.bfloat16()
         scale, top = want.abs().mean().item(), want.abs().max().item()
         plain_ms = cuda_ms(lambda: plain.fused_stage(xb, blocks), 3)
+        tile = plain.block_tile(h, w, c, p, 2)
         plan = plain.stage_plan(h, w, c, p, n, 2)
+        grid = lambda th, tw: math.ceil(h / th) * math.ceil(w / tw) * BATCH
+        # the kernels alone, on weights restaged once (the wrappers restage
+        # them in every call, once per block per detect)
+        starts = [sum(t[0] for t in plan[:k]) for k in range(len(plan))]
+        restage = {"K5": lambda: [_kernel_weights(xb, [b], "K5") for b in blocks],
+                   "K6": lambda: [_kernel_weights(xb, blocks[j: j + g], "K6")
+                                  for j, (g, _, _) in zip(starts, plan)]}
+        k5w, k6w = restage["K5"](), restage["K6"]()
+
+        def k5_staged():
+            y = xb
+            for wt in k5w:
+                y = fused_block_kernel.launch_staged(y, wt, *tile)
+            return y
+
+        def k6_staged():
+            y = xb
+            for (g, th, tw), wt in zip(plan, k6w):
+                y = fused_stage_kernel.launch_staged(y, wt, th, tw, g)
+            return y
+
+        cb = [tuple(t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                    if t.dim() == 4 else t.to(torch.bfloat16)
+                    for t in (w1[:, :, None, None], b1, w2, b2, w3[:, :, None, None], b3))
+              for w1, b1, w2, b2, w3, b3 in blocks]
+        with torch.inference_mode():
+            cudnn_ms = cuda_ms(lambda: cudnn_chain(xb, cb), 10)
         # each block: 1x1 C->P, 3x3 P->P, 1x1 P->C, a multiply and an add per MAC;
         # bytes: the bf16 input and output once, the f32 folded weights once
         stage_ops = 2.0 * BATCH * h * w * (c * p + 9 * p * p + p * c) * n
         stage_bytes = 2 * xb.numel() * 2 + sum(t.numel() * 4 for blk in blocks for t in blk)
-        for name, fn in (("K5", k5_chain), ("K6", fused_stage_kernel)):
+        for name, fn, staged in (("K5", k5_chain, k5_staged), ("K6", fused_stage_kernel, k6_staged)):
             got32 = fn(x, blocks)
             gotb = fn(xb, blocks).float()
             torch.cuda.synchronize()
@@ -714,18 +763,26 @@ def bottleneck_kernel_phase(device) -> list[dict]:
                    "bf16_max_abs_err": d.abs().max().item(),
                    "bf16_mean_rel": d.abs().mean().item() / scale,
                    "bf16_border_mean_rel": _border(d).abs().mean().item() / scale,
-                   "ms": cuda_ms(lambda: fn(xb, blocks), 10), "plain_ms": plain_ms,
-                   "ops": stage_ops, "bytes": stage_bytes}
+                   "ms": cuda_ms(staged, 10), "ms_with_restaging": cuda_ms(lambda: fn(xb, blocks), 10),
+                   "restage_ms": cuda_ms(restage[name], 10), "plain_ms": plain_ms,
+                   "cudnn_chain_ms": cudnn_ms, "ops": stage_ops, "bytes": stage_bytes}
+            if name == "K5":
+                row["tile"], row["grid"] = tile, grid(*tile)
+            else:
+                row["plan"], row["grid"] = plan, [grid(th, tw) for _, th, tw in plan]
             rows[name].append(row)
-            print(f"bottleneck {name} {stage} B={BATCH} {h}x{w} C={c} P={p} blocks={n}"
-                  f"{' plan (g, th, tw) ' + str(plan) if name == 'K6' else ''}: f32 max_abs_err "
+            print(f"bottleneck {name} {stage} B={BATCH} {h}x{w} C={c} P={p} blocks={n} "
+                  f"{'tile ' + str(tile) if name == 'K5' else 'plan (g, th, tw) ' + str(plan)} "
+                  f"grid {row['grid']}: f32 max_abs_err "
                   f"{err32:.3e} ({row['f32_rel']:.2e} of max {top:.3g}, limit 1e-4); bf16 "
                   f"mean rel {row['bf16_mean_rel']:.4f}, border {row['bf16_border_mean_rel']:.4f} "
-                  f"(limit 0.03); bf16 {row['ms']:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"(limit 0.03); bf16 kernel {row['ms']:.4f} ms, with restaging "
+                  f"{row['ms_with_restaging']:.4f} ms (restaging alone {row['restage_ms']:.4f}), "
+                  f"cuDNN chain {cudnn_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
             if not (row["f32_rel"] <= 1e-4 and row["bf16_mean_rel"] < 0.03
                     and row["bf16_border_mean_rel"] < 0.03):
                 raise AssertionError(f"bottleneck {name} disagrees with its plain version at {stage}")
-        del x, xb, want, got32, gotb, d
+        del x, xb, want, got32, gotb, d, k5w, k6w, cb
 
     # the halo-bias case: b1 = 1.0 must not leak relu(b1) into the border
     rng = np.random.default_rng(SEED)
@@ -754,6 +811,9 @@ def bottleneck_kernel_phase(device) -> list[dict]:
                     "max_abs_err_f32": max(r["f32_max_abs_err"] for r in st),
                     "bf16_mean_rel": max(r["bf16_mean_rel"] for r in st),
                     "ms": sum(r["ms"] for r in st), "plain_ms": sum(r["plain_ms"] for r in st),
+                    "ms_with_restaging": sum(r["ms_with_restaging"] for r in st),
+                    "restage_ms": sum(r["restage_ms"] for r in st),
+                    "cudnn_chain_ms": sum(r["cudnn_chain_ms"] for r in st),
                     "library_ms": None,   # no single PyTorch call computes a bottleneck
                     **bound(sum(r["bytes"] for r in st), sum(r["ops"] for r in st), BF16_OPS_S),
                     "per_stage": rows[name]})
@@ -1192,7 +1252,7 @@ def main() -> int:
           f"ms/step, {train['images_per_s']:.2f} images/s on {card}")
 
 
-    bneck_kernels = bottleneck_kernel_phase(device)
+    bneck_kernels = bottleneck_kernel_phase(device, card)
     fused = fused_path(device, all_kernels, card)
     bneck_kernels[0]["launches"] = fused["1"]["launches"]
     bneck_kernels[1]["launches"] = fused["stage"]["launches"]

@@ -108,9 +108,9 @@ def _blocks_per_sm(regs: int, threads: int, smem: int) -> int:
     return min(32, 64 // warps, by_regs, by_smem)
 
 
-def ptxas_report(source: Path) -> list[dict]:
-    """Per kernel: registers, spill bytes, static shared memory from
-    ``nvcc -Xptxas -v`` (sm_90a, -O3, as ``ops/cuda_build.py`` builds)."""
+def ptxas_rows(source: Path) -> list[dict]:
+    """Per kernel of ``source``: registers, spill bytes, static shared memory
+    from ``nvcc -Xptxas -v`` (sm_90a, -O3, as ``ops/cuda_build.py`` builds)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
@@ -134,9 +134,16 @@ def ptxas_report(source: Path) -> list[dict]:
             cur["registers"] = int(m.group(1))
             s = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(s.group(1)) if s else 0
+    return [r for r in rows if "registers" in r]
+
+
+def ptxas_report(source: Path) -> list[dict]:
+    """``ptxas_rows`` of the RoIAlign kernels the main path runs, with their
+    launch shapes and blocks per SM."""
+    rows = ptxas_rows(source)
     # the kernels the main path runs: the forwards at sr = 2 (new) and the
     # backward
-    keep = [r for r in rows if "registers" in r and (
+    keep = [r for r in rows if (
         "roi_align_bwd_kernel" in r["kernel"]
         or ("roi_align_fwd_kernel" in r["kernel"] and not re.search(r"ELi[134]EE", r["kernel"])))]
     for r in keep:

@@ -315,6 +315,57 @@ def test_stage_plan(h, w, c, p, n, itemsize):
     assert plain.smem_bytes(th, tw, 1, c, p, itemsize) <= plain.SMEM_BYTES
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("h,w,c,p,n", R50_SUFFIXES)
+def test_r50_plan_fits(h, w, c, p, n, itemsize):
+    """At R50's four suffixes on the canvas: every K6 group fits its budget
+    (the 2-per-SM budget for K5's tile where such a tile exists), the groups
+    cover the suffix, and every tile is no larger than the image needs."""
+    plan = plain.stage_plan(h, w, c, p, n, itemsize)
+    assert sum(g for g, _, _ in plan) == n
+    for g, th, tw in plan:
+        assert plain.smem_bytes(th, tw, g, c, p, itemsize) <= plain.SMEM_BYTES
+        assert th < 2 * h and tw < 2 * w
+    th, tw = plain.block_tile(h, w, c, p, itemsize)
+    two = plain.pick_tile(h, w, c, p, 1, itemsize, plain.SMEM_BYTES_TWO_PER_SM)
+    if two is not None and (th, tw) == two[:2]:
+        assert plain.smem_bytes(th, tw, 1, c, p, itemsize) <= plain.SMEM_BYTES_TWO_PER_SM
+
+
+def test_block_tile_takes_the_measured_tiles():
+    """In bf16 at R50's suffixes block_tile returns the measured tile, which
+    fits the shared memory; on an image smaller than that tile, or in f32, it
+    takes the best 2-per-SM tile, else the best tile."""
+    for h, w, c, p, _ in R50_SUFFIXES:
+        th, tw = plain.MEASURED_TILES[(c, p)]
+        assert plain.block_tile(h, w, c, p, 2) == (th, tw)
+        assert plain.smem_bytes(th, tw, 1, c, p, 2) <= plain.SMEM_BYTES
+    two = plain.pick_tile(3, 4, 2048, 512, 1, 2, plain.SMEM_BYTES_TWO_PER_SM)
+    assert plain.block_tile(3, 4, 2048, 512, 2) == two[:2]
+    two = plain.pick_tile(160, 256, 256, 64, 1, 4, plain.SMEM_BYTES_TWO_PER_SM)
+    assert plain.block_tile(160, 256, 256, 64, 4) == two[:2]
+
+
+def test_smem_layout_matches_the_kernel_source():
+    """ops/bottleneck.py's shared-memory layout is the one csrc/bottleneck.cu
+    allocates: the row pad and the bf16 ring (stages x rows x k + pad); f32
+    has no ring."""
+    import re
+
+    from cald_tpu_torch.ops.cuda_build import CSRC
+
+    src = (CSRC / "bottleneck.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr (?:int|size_t) (k\w+) = (\d+);", src)}
+    assert (plain.SMEM_PAD, plain.RING_STAGES, plain.RING_K, plain.RING_ROWS) == (
+        const["kPad"], const["kStages"], const["kBK"], const["kRingRows"])
+    assert plain.SMEM_BYTES == const["kMaxSmem"]
+    assert plain.RING_BYTES == const["kStages"] * const["kRingRows"] * (
+        const["kBK"] + const["kPad"]) * 2
+    for th, tw, g, c, p in [(8, 16, 1, 256, 64), (8, 16, 2, 256, 64), (4, 8, 1, 2048, 512)]:
+        assert plain.smem_bytes(th, tw, g, c, p, 2) - plain.RING_BYTES == plain.smem_bytes(
+            th, tw, g, c, p, 4) // 2
+
+
 def test_stage_plan_chains_layer1_in_bf16():
     """At R50's layer1 in bf16 the whole 2-block suffix is one group; the
     wider stages run one block per group."""

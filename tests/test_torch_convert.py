@@ -119,3 +119,22 @@ def test_roi_kernel_turns_imports_no_jax_and_refuses_without_cuda():
                           str(root / "cald_tpu_torch" / "csrc" / "roi_align.cu")],
                          capture_output=True, text=True, timeout=120, cwd=root)
     assert out.returncode != 0 and "wrote" not in out.stdout
+
+
+def test_bottleneck_turns_imports_no_jax_and_refuses_without_cuda():
+    """bottleneck_turns.py, run on the card, imports neither JAX nor the JAX
+    package, and without a CUDA device exits non-zero before building."""
+    root = Path(__file__).resolve().parent.parent
+    code = ("import sys\n"
+            "import bottleneck_turns\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cald_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(root / "bottleneck_turns.py"), "--old",
+                          str(root / "cald_tpu_torch" / "csrc" / "bottleneck.cu"), "--sweep"],
+                         capture_output=True, text=True, timeout=120, cwd=root)
+    assert out.returncode != 0 and "wrote" not in out.stdout

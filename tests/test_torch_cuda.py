@@ -382,9 +382,14 @@ def _check(got: torch.Tensor, want: torch.Tensor, dtype):
 
 
 # (B, H, W, C, P): narrow, odd widths (the unaligned path), ragged H and W,
-# R50's layer3 and layer4 suffix inputs, and layer4 of the 96x128 canvas
+# R50's layer3 and layer4 suffix inputs, and layer4 of the 96x128 canvas;
+# R50's layer1 and layer2 widths at a small H x W; images smaller than one
+# tile (1x1, 3x5); B = 17; C = 48 (a half k-slab on the bf16 path) with
+# P = 16, and the ragged pair C = 48, P = 24 (the pointer-row path)
 BLOCK_SHAPES = [(2, 13, 19, 64, 16), (2, 7, 9, 40, 12), (1, 40, 64, 1024, 256),
-                (2, 20, 32, 2048, 512), (2, 3, 4, 2048, 512)]
+                (2, 20, 32, 2048, 512), (2, 3, 4, 2048, 512), (2, 11, 13, 256, 64),
+                (2, 9, 11, 512, 128), (2, 1, 1, 256, 64), (1, 3, 5, 1024, 256),
+                (17, 5, 7, 64, 16), (2, 9, 10, 48, 16), (2, 9, 10, 48, 24)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -404,7 +409,9 @@ def test_block_kernel_matches_plain(bneck, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,n", [((2, 24, 32, 64, 16), 7), ((1, 160, 256, 256, 64), 2),
-                                     ((2, 11, 21, 40, 12), 3), ((1, 80, 128, 512, 128), 3)])
+                                     ((2, 11, 21, 40, 12), 3), ((1, 80, 128, 512, 128), 3),
+                                     ((2, 9, 13, 1024, 256), 5), ((1, 5, 6, 2048, 512), 2),
+                                     ((17, 6, 7, 256, 64), 3), ((1, 1, 1, 256, 64), 2)])
 def test_stage_kernel_matches_plain(bneck, shape, n, dtype):
     """K6 through its plan against the plain chain."""
     from cald_tpu_torch.ops import bottleneck
@@ -423,7 +430,49 @@ def test_stage_kernel_matches_plain(bneck, shape, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,th,tw", [(2, 4, 8), (3, 4, 4), (4, 2, 8), (3, 8, 16)])
+@pytest.mark.parametrize("shape,tile", [((2, 13, 19, 256, 64), (8, 8)),
+                                        ((2, 13, 19, 256, 64), (4, 16)),
+                                        ((1, 13, 19, 512, 128), (8, 16)),
+                                        ((1, 9, 7, 1024, 256), (8, 8))])
+def test_block_kernel_ragged_tiles(bneck, shape, tile, dtype):
+    """K5 at R50 widths on tiles that cross the ragged right and bottom edges
+    (and one larger than the image)."""
+    from cald_tpu_torch.ops import bottleneck
+
+    block_k, _ = bneck
+    b, h, w, c, p = shape
+    x = _activations(b, c, h, w)
+    blk = _folded_blocks(c, p, 1)[0]
+    want = bottleneck.fused_block(x, blk)
+    got = block_k._run(x.to(dtype), [blk], *tile)
+    torch.cuda.synchronize()
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,p", [(64, 16), (48, 24)])
+def test_block_kernel_unaligned_input(bneck, c, p, dtype):
+    """An input one element off a 16-byte boundary takes the pointer-row path
+    (the launcher checks every pointer) and agrees all the same."""
+    from cald_tpu_torch.ops import bottleneck
+
+    block_k, _ = bneck
+    x = _activations(2, c, 9, 13)
+    blk = _folded_blocks(c, p, 1)[0]
+    want = bottleneck.fused_block(x, blk)
+    xd = x.to(dtype)
+    buf = torch.empty(xd.numel() + 1, dtype=dtype, device=xd.device)
+    nhwc = buf[1:].view(2, 9, 13, c)
+    nhwc.copy_(xd.permute(0, 2, 3, 1))
+    mis = nhwc.permute(0, 3, 1, 2)
+    assert mis.is_contiguous(memory_format=torch.channels_last) and mis.data_ptr() % 16
+    got = block_k(mis, blk)
+    torch.cuda.synchronize()
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,th,tw", [(1, 4, 8), (2, 4, 8), (3, 4, 4), (4, 2, 8), (3, 8, 16)])
 def test_stage_kernel_any_group_and_tile(bneck, g, th, tw, dtype):
     """One launch of g chained blocks on ragged tiles (13x19 is no multiple
     of any tile): every intermediate is masked by the image, not the tile."""
