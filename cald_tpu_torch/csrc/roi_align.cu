@@ -87,27 +87,30 @@
 // 16-byte aligned, the same kernel adds one channel a lane (V = 1).
 //
 // K4, entry cald_roi_align_group_fwd, replaces cald_tpu/ops/pallas_roi_align.py::
-// _roi_group_kernel (the grouped training forward under CALD_TPU_ROI_GROUP=g):
-// K2's function in the TPU kernel's separable form, g rois of one image per
-// group. Per roi, with the pooled bilinear axis weights (each output row and
-// column has 2 * sr taps, a pixel and its weight, a pixel shared by two taps
-// of one bin counted once): t[y, col] = sum_k wy[y, k] * F[row_k, col] over
-// the roi's sample columns, then out[y, x] = sum_j wx[x, j] * t[y, col_j].
-// In the "bf16" mode (hi_prec = 0) the pooled weights and t are rounded to
-// bf16 where the TPU kernel rounds them; the sums stay f32. Not carried over:
-// the block-diagonal weight matrices, the flat (H, W*C) levels, the 8-aligned
-// DMA windows and their size buckets. With no window the result is exact for
-// every roi (the TPU kernel clamps rois wider than its 56-row envelope).
-// Design: one block per (group, output row), threads across C, the group's
-// taps planned once per block into shared memory (g * 2 axes * S * 2sr
-// pairs, 3.5 KB at g = 8); each thread sums t for one channel in registers
-// and folds it straight into its output column, so t needs no storage (a
-// sample column shared by two output columns is summed twice, with the same
-// result). What bounds it: like K2, the gather of the taps' feature rows
-// (coalesced across C in channels-last levels) and the f32 output; the
-// separable form reads each tap pixel once per (output row, column tap).
-// Blocks of a group's image run together, so its pyramid stays in L2.
-// Invalid rois are written as zeros.
+// _roi_group_kernel (the grouped training forward under CALD_TPU_ROI_GROUP=g).
+// The TPU kernel pools g rois of one image per grid step only to fill its
+// matrix unit with block-diagonal products; the value of a roi does not
+// depend on g. So K4 is K2's kernel (roi_align_fwd_kernel, float32 output)
+// and g enters neither its arithmetic nor its grid. It already contracts in
+// the TPU kernel's separable order: per column tap j,
+// t[y, col_j] = sum_k wy[y, k] * F[row_k, col_j], then out[y, x] +=
+// wx[x, j] * t[y, col_j]. In "hi" (hi_prec = 1) it is the very instantiation
+// K2 runs, and equals K2 bit for bit. In the "bf16" mode (hi_prec = 0) the
+// ROUND instantiation adds the TPU kernel's two rounding points: the pooled
+// axis weights are rounded to bf16 (pooled_taps), and so is each t before
+// its x-contraction; the sums stay f32. A weight rounded to bf16 is never
+// rounded to 0 (bf16 keeps float32's exponent range), so a tap of weight 0
+// is still the only tap left unloaded. Not carried over: the block-diagonal
+// weight matrices, the flat (H, W*C) levels, the 8-aligned DMA windows and
+// their size buckets; with no window the result is exact for every roi (the
+// TPU kernel clamps rois wider than its 56-row envelope). What bounds it on
+// the H100: bytes, as K2, about 155 MB at the training path's shapes (B = 4,
+// 512 rois per image, C = 256: the tapped bf16 level pixels and 103 MB of
+// f32 output), 0.046 ms at 3.35 TB/s. A first design (one block per group of
+// g rois and output row, one channel a thread, 2-byte loads, 4-byte stores,
+// each tap loaded again for every output column that uses it, 1,792 long
+// blocks at g = 8, 1.7 waves) took 0.47 ms on an H100 SXM; K2's design took
+// that function to 0.09 ms.
 //
 // Layout: level l is (B, H_l, W_l, C) contiguous; rois (B, N, 4) f32 xyxy in
 // image coordinates; valid (B, N) bool; levels (B, N) int32 in [0, L);
@@ -282,9 +285,11 @@ __device__ __forceinline__ void roi_axis(const float* roi, float scale, int axis
   *extent = fmaxf(__fsub_rn(__fmul_rn(roi[axis == 0 ? 3 : 2], scale), lo), 1.f);
 }
 
-// K1 / K2. grid: B * N blocks, one per roi; block: s warps, one per output
-// row. dynamic shared memory: 2 axes x s bins x 2 SR taps x (int + float).
-template <typename T, typename O, int V, int SR>
+// K1 / K2 / K4. grid: B * N blocks, one per roi; block: s warps, one per
+// output row. dynamic shared memory: 2 axes x s bins x 2 SR taps x (int +
+// float). ROUND (K4's "bf16" mode) rounds the pooled weights and each t to
+// bf16; without it the code is K1's and K2's.
+template <typename T, typename O, int V, int SR, bool ROUND>
 __global__ void __launch_bounds__(32 * CALD_MAX_OUT)
 roi_align_fwd_kernel(LevelArgs lv, const float* __restrict__ rois,
                      const bool* __restrict__ valid, const int* __restrict__ levels,
@@ -309,7 +314,7 @@ roi_align_fwd_kernel(LevelArgs lv, const float* __restrict__ rois,
     const int axis = t / s;                               // 0 rows (y), 1 columns (x)
     float start, extent;
     roi_axis(rois + 4 * r, lv.scale[l], axis, &start, &extent);
-    pooled_taps(start, extent, axis == 0 ? h : w, t % s, s, SR, true, false, pix + t * TAPS,
+    pooled_taps(start, extent, axis == 0 ? h : w, t % s, s, SR, true, ROUND, pix + t * TAPS,
                 wt + t * TAPS);
   }
   __syncthreads();
@@ -356,6 +361,12 @@ roi_align_fwd_kernel(LevelArgs lv, const float* __restrict__ rois,
           L::unpack(v[j][k], x);
 #pragma unroll
           for (int e = 0; e < V; ++e) t[e] = fmaf(wy[k], x[e], t[e]);
+        }
+        // t is the same for every output column that taps column col[j], so
+        // rounding it here is the plain version's rounding of t[y, col_j]
+        if constexpr (ROUND) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) t[e] = round_bf16(t[e]);
         }
 #pragma unroll
         for (int e = 0; e < V; ++e) acc[e] = fmaf(wx[j], t[e], acc[e]);
@@ -481,75 +492,6 @@ roi_align_bwd_kernel(LevelArgs lv, const float* __restrict__ rois,
   }
 }
 
-// K4. grid: (B * groups_per_image, S); block: threads across C.
-// dynamic shared memory: g rois x 2 axes x S bins x 2sr taps x (int + float).
-template <typename T>
-__global__ void roi_align_group_kernel(LevelArgs lv, const float* __restrict__ rois,
-                                       const bool* __restrict__ valid,
-                                       const int* __restrict__ levels, float* __restrict__ out,
-                                       int n, int c, int s, int sr, int g, int groups_per_image,
-                                       int bf16) {
-  extern __shared__ unsigned char smem[];
-  const int b = blockIdx.x / groups_per_image;
-  const int r0 = b * n + (blockIdx.x % groups_per_image) * g;   // first roi of the group
-  const int m = min(g, b * n + n - r0);                          // the image's last group is short
-  const int y = blockIdx.y;                                      // output row
-  const int taps = 2 * sr;
-  const int per_axis = s * taps;
-  int* pix = reinterpret_cast<int*>(smem);                       // [g][2 axes][S][taps]
-  float* wt = reinterpret_cast<float*>(pix + g * 2 * per_axis);
-
-  for (int t = threadIdx.x; t < m * 2 * s; t += blockDim.x) {
-    const int j = t / (2 * s);
-    const int axis = (t / s) % 2;                                // 0 rows (y), 1 columns (x)
-    const int o = t % s;
-    const int r = r0 + j;
-    const int l = levels[r];
-    const float scale = lv.scale[l];
-    const float* roi = rois + 4 * r;
-    const float lo = __fmul_rn(roi[axis == 0 ? 1 : 0], scale);
-    const float extent = fmaxf(__fsub_rn(__fmul_rn(roi[axis == 0 ? 3 : 2], scale), lo), 1.f);
-    const int off = (j * 2 + axis) * per_axis + o * taps;
-    pooled_taps(lo, extent, axis == 0 ? lv.h[l] : lv.w[l], o, s, sr, valid[r], bf16 != 0,
-                pix + off, wt + off);
-  }
-  __syncthreads();
-
-  for (int j = 0; j < m; ++j) {
-    const int r = r0 + j;
-    float* o = out + ((size_t)r * s + y) * (size_t)s * c;
-    if (!valid[r]) {
-      for (int i = threadIdx.x; i < s * c; i += blockDim.x) o[i] = 0.f;
-      continue;
-    }
-    const int l = levels[r];
-    const int w = lv.w[l];
-    const T* f = static_cast<const T*>(lv.ptr[l]) + (size_t)b * lv.h[l] * w * c;
-    const int* yp = pix + (j * 2) * per_axis + y * taps;
-    const float* yw = wt + (j * 2) * per_axis + y * taps;
-    const int* xp = pix + (j * 2 + 1) * per_axis;
-    const float* xw = wt + (j * 2 + 1) * per_axis;
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      for (int x = 0; x < s; ++x) {
-        float acc = 0.f;
-        for (int jx = 0; jx < taps; ++jx) {
-          const float wx = xw[x * taps + jx];
-          if (wx == 0.f) continue;                 // the same for every thread
-          const T* col = f + (size_t)xp[x * taps + jx] * c + ch;
-          float t = 0.f;                           // t[y, col_jx] for this channel
-          for (int ky = 0; ky < taps; ++ky) {
-            const float wy = yw[ky];
-            if (wy != 0.f) t += wy * to_float(col[(size_t)yp[ky] * w * c]);
-          }
-          if (bf16) t = round_bf16(t);
-          acc += wx * t;
-        }
-        o[(size_t)x * c + ch] = acc;
-      }
-    }
-  }
-}
-
 static int fill_levels(LevelArgs* lv, const void* const* level_ptrs, const int* level_h,
                        const int* level_w, const float* level_scale, int num_levels) {
   if (num_levels < 1 || num_levels > CALD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
@@ -563,8 +505,6 @@ static int fill_levels(LevelArgs* lv, const void* const* level_ptrs, const int* 
   return (int)cudaSuccess;
 }
 
-static int threads_for(int c) { return c >= 256 ? 256 : ((c + 31) / 32) * 32; }
-
 static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Whether every level and `extra` are 16-byte aligned and C is a multiple of
@@ -576,7 +516,7 @@ static bool vector_ok(const LevelArgs& lv, int num_levels, const void* extra, in
   return ok;
 }
 
-template <typename T, typename O, int V>
+template <typename T, typename O, int V, bool ROUND>
 static int launch_fwd_v(const LevelArgs& lv, const float* rois, const bool* valid,
                         const int* levels, O* out, int b, int n, int c, int s, int sr,
                         cudaStream_t st) {
@@ -584,31 +524,33 @@ static int launch_fwd_v(const LevelArgs& lv, const float* rois, const bool* vali
   const int threads = 32 * s;
   const size_t smem = (size_t)2 * s * 2 * sr * (sizeof(int) + sizeof(float));
   switch (sr) {
-    case 1: roi_align_fwd_kernel<T, O, V, 1><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
-    case 2: roi_align_fwd_kernel<T, O, V, 2><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
-    case 3: roi_align_fwd_kernel<T, O, V, 3><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
-    case 4: roi_align_fwd_kernel<T, O, V, 4><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
+    case 1: roi_align_fwd_kernel<T, O, V, 1, ROUND><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
+    case 2: roi_align_fwd_kernel<T, O, V, 2, ROUND><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
+    case 3: roi_align_fwd_kernel<T, O, V, 3, ROUND><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
+    case 4: roi_align_fwd_kernel<T, O, V, 4, ROUND><<<grid, threads, smem, st>>>(lv, rois, valid, levels, out, n, c, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename O>
+template <typename T, typename O, bool ROUND>
 static int launch_fwd_t(const LevelArgs& lv, int num_levels, const float* rois,
                         const bool* valid, const int* levels, void* out, int b, int n, int c,
                         int s, int sr, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
   O* o = static_cast<O*>(out);
   if (vector_ok(lv, num_levels, out, c, VEC))
-    return launch_fwd_v<T, O, VEC>(lv, rois, valid, levels, o, b, n, c, s, sr, st);
-  return launch_fwd_v<T, O, 1>(lv, rois, valid, levels, o, b, n, c, s, sr, st);
+    return launch_fwd_v<T, O, VEC, ROUND>(lv, rois, valid, levels, o, b, n, c, s, sr, st);
+  return launch_fwd_v<T, O, 1, ROUND>(lv, rois, valid, levels, o, b, n, c, s, sr, st);
 }
 
-// out_f32: 0 = output in the feature dtype (K1), 1 = float32 output (K2).
+// out_f32: 0 = output in the feature dtype (K1), 1 = float32 output (K2, K4).
+// bf16_mode: 1 = K4's "bf16" mode (with out_f32 = 1).
 static int launch_fwd(const void* const* level_ptrs, const int* level_h, const int* level_w,
                       const float* level_scale, int num_levels, const float* rois,
                       const bool* valid, const int* levels, void* out, int b, int n, int c,
-                      int out_size, int sampling_ratio, int dtype, int out_f32, void* stream) {
+                      int out_size, int sampling_ratio, int dtype, int out_f32, int bf16_mode,
+                      void* stream) {
   LevelArgs lv;
   const int err = fill_levels(&lv, level_ptrs, level_h, level_w, level_scale, num_levels);
   if (err != (int)cudaSuccess) return err;
@@ -617,15 +559,22 @@ static int launch_fwd(const void* const* level_ptrs, const int* level_h, const i
     return (int)cudaErrorInvalidValue;
   if (b * n == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && bf16_mode)
+    return launch_fwd_t<float, float, true>(lv, num_levels, rois, valid, levels, out, b, n, c,
+                                            out_size, sampling_ratio, st);
   if (dtype == 0)
-    return launch_fwd_t<float, float>(lv, num_levels, rois, valid, levels, out, b, n, c,
-                                      out_size, sampling_ratio, st);
+    return launch_fwd_t<float, float, false>(lv, num_levels, rois, valid, levels, out, b, n, c,
+                                             out_size, sampling_ratio, st);
+  if (dtype == 1 && bf16_mode)
+    return launch_fwd_t<__nv_bfloat16, float, true>(lv, num_levels, rois, valid, levels, out, b,
+                                                    n, c, out_size, sampling_ratio, st);
   if (dtype == 1 && out_f32)
-    return launch_fwd_t<__nv_bfloat16, float>(lv, num_levels, rois, valid, levels, out, b, n, c,
-                                              out_size, sampling_ratio, st);
+    return launch_fwd_t<__nv_bfloat16, float, false>(lv, num_levels, rois, valid, levels, out, b,
+                                                     n, c, out_size, sampling_ratio, st);
   if (dtype == 1)
-    return launch_fwd_t<__nv_bfloat16, __nv_bfloat16>(lv, num_levels, rois, valid, levels, out,
-                                                      b, n, c, out_size, sampling_ratio, st);
+    return launch_fwd_t<__nv_bfloat16, __nv_bfloat16, false>(lv, num_levels, rois, valid, levels,
+                                                             out, b, n, c, out_size,
+                                                             sampling_ratio, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -633,8 +582,8 @@ static int launch_fwd(const void* const* level_ptrs, const int* level_h, const i
 // level_scale are HOST arrays of num_levels entries; every other pointer is
 // device memory. dtype is the feature dtype: 0 = float32, 1 = bfloat16. Each
 // launches on `stream` and returns cudaGetLastError() (0 on success); none
-// synchronises. K1, K2 and K3 take out_size 1..8; K1 and K2 sampling_ratio
-// 1..4, K3 and K4 1..8.
+// synchronises. All take out_size 1..8; K1, K2 and K4 sampling_ratio 1..4,
+// K3 1..8.
 
 // K1: out (B, N, S, S, C) in the feature dtype.
 extern "C" int cald_roi_align_fwd(const void* const* level_ptrs, const int* level_h,
@@ -644,7 +593,7 @@ extern "C" int cald_roi_align_fwd(const void* const* level_ptrs, const int* leve
                                   int out_size, int sampling_ratio, int dtype,
                                   void* stream) {
   return launch_fwd(level_ptrs, level_h, level_w, level_scale, num_levels, rois, valid, levels,
-                    out, b, n, c, out_size, sampling_ratio, dtype, 0, stream);
+                    out, b, n, c, out_size, sampling_ratio, dtype, 0, 0, stream);
 }
 
 // K2: out (B, N, S, S, C) float32.
@@ -655,40 +604,21 @@ extern "C" int cald_roi_align_train_fwd(const void* const* level_ptrs, const int
                                         int out_size, int sampling_ratio, int dtype,
                                         void* stream) {
   return launch_fwd(level_ptrs, level_h, level_w, level_scale, num_levels, rois, valid, levels,
-                    out, b, n, c, out_size, sampling_ratio, dtype, 1, stream);
+                    out, b, n, c, out_size, sampling_ratio, dtype, 1, 0, stream);
 }
 
-// K4: out (B, N, S, S, C) float32; g rois of one image per group (the last
-// group of an image may be short); hi_prec 1 = f32 throughout, 0 = the
-// "bf16" mode.
+// K4: out (B, N, S, S, C) float32; hi_prec 1 = f32 throughout (K2's
+// instantiation), 0 = the "bf16" mode. g (the rois per group of the TPU
+// kernel, >= 1) is checked and enters neither the arithmetic nor the grid.
 extern "C" int cald_roi_align_group_fwd(const void* const* level_ptrs, const int* level_h,
                                         const int* level_w, const float* level_scale,
                                         int num_levels, const float* rois, const bool* valid,
                                         const int* levels, float* out, int b, int n, int c,
                                         int out_size, int sampling_ratio, int dtype, int g,
                                         int hi_prec, void* stream) {
-  LevelArgs lv;
-  const int err = fill_levels(&lv, level_ptrs, level_h, level_w, level_scale, num_levels);
-  if (err != (int)cudaSuccess) return err;
-  if (g < 1 || sampling_ratio < 1 || sampling_ratio > CALD_MAX_SR) return (int)cudaErrorInvalidValue;
-  if (b * n == 0) return (int)cudaSuccess;
-  const int groups = (n + g - 1) / g;
-  const dim3 grid(b * groups, out_size);
-  const int threads = threads_for(c);
-  const size_t smem = (size_t)g * 2 * out_size * 2 * sampling_ratio * (sizeof(int) + sizeof(float));
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bf16 = hi_prec ? 0 : 1;
-  if (dtype == 0) {
-    roi_align_group_kernel<float><<<grid, threads, smem, st>>>(
-        lv, rois, valid, levels, out, n, c, out_size, sampling_ratio, g, groups, bf16);
-  } else if (dtype == 1) {
-    roi_align_group_kernel<__nv_bfloat16><<<grid, threads, smem, st>>>(
-        lv, rois, valid, levels, out, n, c, out_size, sampling_ratio, g, groups, bf16);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (g < 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd(level_ptrs, level_h, level_w, level_scale, num_levels, rois, valid, levels,
+                    out, b, n, c, out_size, sampling_ratio, dtype, 1, hi_prec ? 0 : 1, stream);
 }
 
 // K3: grad_ptrs are the float32 (B, H_l, W_l, C) level gradients, zeroed by

@@ -1,5 +1,5 @@
 """Multi-scale RoIAlign through the hand-written Hopper kernels
-(``csrc/roi_align.cu``), which replace three TPU kernels:
+(``csrc/roi_align.cu``), which replace four TPU kernels:
 
 - ``roi_align_kernel`` (K1): the inference forward, output in the feature
   dtype; replaces ``cald_tpu/ops/flm_roi_align.py::_flm_kernel``.
@@ -7,9 +7,12 @@
   replaces ``cald_tpu/ops/pallas_roi_align.py::_roi_kernel``.
 - ``roi_align_bwd_kernel`` (K3): the training backward into float32 level
   gradients; replaces ``cald_tpu/ops/pallas_roi_align.py::_roi_bwd_kernel``.
-- ``roi_align_group_fwd_kernel`` (K4): the grouped training forward, g rois
-  of one image per block in the separable form, float32 output; replaces
-  ``cald_tpu/ops/pallas_roi_align.py::_roi_group_kernel``.
+- ``roi_align_group_fwd_kernel`` (K4): the grouped training forward, float32
+  output; replaces ``cald_tpu/ops/pallas_roi_align.py::_roi_group_kernel``.
+  The value of a roi does not depend on the TPU's group size g, so K4 runs
+  K2's kernel: in "hi" K2's very instantiation, in "bf16" one that rounds
+  the pooled weights and the y-contracted ``t`` to bf16 where the plain
+  version does. g is checked and otherwise unused.
 
 ``window_roi_align`` is the TPU window kernels' forward: K4 under the group
 gate (``CALD_TPU_ROI_GROUP``), else K2. ``RoIAlignFunction`` joins it and K3
@@ -18,10 +21,12 @@ for autograd (the detector applies it in
 device of the tensors it is given: for CPU tensors it runs the plain version
 (``ops/roi_align.py``); for CUDA tensors it launches its kernel or raises. The kernels are compiled with
 ``nvcc`` for ``sm_90a`` at first launch (``ops/cuda_build.py``); importing
-this module builds nothing. K1, K2 and K3 move 16 bytes of channels a lane
+this module builds nothing. The kernels move 16 bytes of channels a lane
 when C is a multiple of the vector width (8 bf16 or 4 f32 channels) and
 every level and output is 16-byte aligned, else one channel a lane: the
-kernel source picks the path from the shapes and pointers it is given.
+kernel source picks the path from the shapes and pointers it is given. They
+take output sizes 1..8 and sampling ratios 1..4 (K3 1..8) and raise
+``ValueError`` beyond them.
 
 The forwards' output equals the TPU kernels' (K1's pooled slots gathered back
 by ``slot_of_roi``): (B, N, 7, 7, C) in proposal order, with zeros for invalid
@@ -61,9 +66,9 @@ def _check_rois(rois, valid, levels, b: int):
 
 
 def _check_sizes(output_size: int, sampling_ratio: int, max_sr: int):
-    """The kernels' limits: one warp per output row (K1, K2), a bin's taps
-    unrolled (K1, K2: sampling ratio up to 4), the taps' plan in shared
-    memory (K3: up to 8)."""
+    """The kernels' limits: one warp per output row (K1, K2, K4), a bin's
+    taps unrolled (K1, K2, K4: sampling ratio up to 4), the taps' plan in
+    shared memory (K3: up to 8)."""
     if not (1 <= output_size <= 8 and 1 <= sampling_ratio <= max_sr):
         raise ValueError(f"roi_align: the kernel takes output_size 1..8 and sampling_ratio "
                          f"1..{max_sr}, not {output_size} and {sampling_ratio}")
@@ -141,7 +146,8 @@ class RoIAlignTrainForward(_Entry):
 
 
 class RoIAlignGroupForward(_Entry):
-    """K4, the grouped training forward: float32 output, g rois per group."""
+    """K4, the grouped training forward: float32 output; K2's kernel, with
+    the "bf16" mode's rounding points when ``hi_prec`` is False."""
 
     symbol = "cald_roi_align_group_fwd"
     argtypes = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 8 + [_P]
@@ -151,7 +157,8 @@ class RoIAlignGroupForward(_Entry):
                  spatial_scales: Sequence[float], output_size: int = 7,
                  sampling_ratio: int = 2) -> torch.Tensor:
         """As ``RoIAlignTrainForward``, with ``g`` rois of one image per group
-        and ``hi_prec`` False for the "bf16" mode. Returns (B, N, S, S, C)
+        (the plain version pads to it; the result does not depend on it) and
+        ``hi_prec`` False for the "bf16" mode. Returns (B, N, S, S, C)
         float32."""
         if self._device(rois) == "cpu":
             return plain.grouped_multi_scale_roi_align(
@@ -160,6 +167,7 @@ class RoIAlignGroupForward(_Entry):
                 sampling_ratio=sampling_ratio)
         if not 1 <= g <= 64:
             raise ValueError(f"roi_align group: g must be in 1..64, not {g}")
+        _check_sizes(output_size, sampling_ratio, 4)
         return _forward(self, feats, rois, valid, levels, spatial_scales, output_size,
                         sampling_ratio, torch.float32, g, int(hi_prec))
 

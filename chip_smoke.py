@@ -71,8 +71,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      shapes (as phase 3), g = 2 and 8 in "hi" and g = 8 in "bf16": f32
      features with TF32 off against the plain version of the same mode (atol
      1e-4 "hi", 5e-2 "bf16"), bf16 features against the plain f32 version
-     (atol 5e-2); invalid rois exactly 0; K2 and K4 timed in turns (K2 K4 K4
-     K2) at the training shapes in bf16, g = 8;
+     (atol 5e-2); invalid rois exactly 0; K4 "hi" equal to K2 bit for bit on
+     f32 and bf16 features; bf16 features, g = 8, timed in turns: K2, K4
+     "hi" and K4 "bf16" at the training shapes, K4 in both modes at the
+     inference shapes, each with its bound;
  11. the active-learning loop: ``cli.driver.al_loop`` on the card with
      CALD_TPU_ROI_GROUP=8: R50-FPN, 21 VOC classes, bf16, RPN 2000/2000 and
      1000/1000, samplers 256/512, from a torchvision-layout backbone that the
@@ -933,7 +935,8 @@ def fused_path(device, kernels: dict, card: str) -> dict:
 
 def group_kernel_phase(device, card: str) -> dict:
     """K4 against its plain version (phase 10) at the training path's shapes
-    and at the CALD_TPU_ROI_FLM=0 inference shapes; K2 and K4 timed in turns."""
+    and at the CALD_TPU_ROI_FLM=0 inference shapes; K4 "hi" against K2 bit
+    for bit; K2 and K4 in both modes timed in turns."""
     import torch
 
     from cald_tpu_torch.ops import roi_align as plain
@@ -942,9 +945,11 @@ def group_kernel_phase(device, card: str) -> dict:
     )
 
     worst = {"f32": 0.0, "bf16_mode": 0.0, "bf16_features": 0.0}
-    for label, (feats, rois, valid) in (
-            (f"train B={TRAIN_BATCH} S={TRAIN_SAMPLES}", train_roi_inputs(device)),
-            (f"FLM=0 inference B={BATCH} N=1000", roi_inputs(device))):
+    shapes = {"train": (f"train B={TRAIN_BATCH} S={TRAIN_SAMPLES}", train_roi_inputs),
+              "flm0": (f"FLM=0 inference B={BATCH} N=1000", roi_inputs)}
+    timed = {}
+    for key, (label, make) in shapes.items():
+        feats, rois, valid = make(device)
         levels = plain.roi_levels(rois, SCALES).contiguous()
         feats_bf = [f.bfloat16() for f in feats]
         want_f32 = plain.grouped_multi_scale_roi_align(
@@ -969,35 +974,59 @@ def group_kernel_phase(device, card: str) -> dict:
                 raise AssertionError(f"K4 disagrees with its plain version ({label}, g={g}, {mode})")
             worst["f32" if hi else "bf16_mode"] = max(worst["f32" if hi else "bf16_mode"], err)
             worst["bf16_features"] = max(worst["bf16_features"], err_bf)
+        # "hi" is K2's instantiation: K2's output bit for bit
+        for name, fs in (("f32", feats), ("bf16", feats_bf)):
+            same = torch.equal(roi_align_group_fwd_kernel(fs, rois, valid, levels, g=8,
+                                                          hi_prec=True, spatial_scales=SCALES),
+                               roi_align_train_fwd_kernel(fs, rois, valid, levels,
+                                                          spatial_scales=SCALES))
+            print(f"group kernel: {label} g=8 hi equals K2 bit for bit on {name} features: {same}")
+            if not same:
+                raise AssertionError(f"K4 hi differs from K2 ({label}, {name} features)")
 
-    # the training shapes in bf16, g = 8 "hi" (phase 11's configuration): K2 and K4 in turns
-    feats, rois, valid = train_roi_inputs(device)
-    levels = plain.roi_levels(rois, SCALES).contiguous()
-    feats_bf = [f.bfloat16() for f in feats]
-    fns = {"K2": lambda: roi_align_train_fwd_kernel(feats_bf, rois, valid, levels,
-                                                    spatial_scales=SCALES),
-           "K4": lambda: roi_align_group_fwd_kernel(feats_bf, rois, valid, levels, g=8,
-                                                    hi_prec=True, spatial_scales=SCALES)}
-    times = {"K2": [], "K4": []}
-    for name in ("K2", "K4", "K4", "K2"):
-        times[name].append(cuda_ms(fns[name], 20))
-    plain_ms = cuda_ms(lambda: plain.grouped_multi_scale_roi_align(
-        feats_bf, rois, spatial_scales=SCALES, g=8, valid=valid, levels=levels), 3)
-    print(f"group kernel time, train B={TRAIN_BATCH} S={TRAIN_SAMPLES} bf16 g=8 (CUDA events, "
-          f"mean of 20, in turns K2 K4 K4 K2): K2 {times['K2'][0]:.4f} / {times['K2'][1]:.4f} ms, "
-          f"K4 {times['K4'][0]:.4f} / {times['K4'][1]:.4f} ms; plain K4 {plain_ms:.4f} ms "
-          f"on {card}")
-    level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
-    out_bytes = TRAIN_BATCH * TRAIN_SAMPLES * 49 * feats[0].shape[-1] * 4
+        # bf16 features, g = 8 (phase 11's group): K2 and K4 in both modes in turns
+        del feats
+        fns = {"K4": lambda: roi_align_group_fwd_kernel(feats_bf, rois, valid, levels, g=8,
+                                                        hi_prec=True, spatial_scales=SCALES),
+               "K4 bf16 mode": lambda: roi_align_group_fwd_kernel(
+                   feats_bf, rois, valid, levels, g=8, hi_prec=False, spatial_scales=SCALES)}
+        if key == "train":
+            fns = {"K2": lambda: roi_align_train_fwd_kernel(feats_bf, rois, valid, levels,
+                                                            spatial_scales=SCALES), **fns}
+        times = {k: [] for k in fns}
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(cuda_ms(fns[name], 20))
+        level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
+        out_bytes = rois.shape[0] * rois.shape[1] * 49 * feats_bf[0].shape[-1] * 4
+        timed[key] = {"times": times, **bound(level_bytes + out_bytes
+                                              + roi_index_bytes(rois, valid, levels), n_ops,
+                                              F32_OPS_S)}
+        if key == "train":
+            timed[key]["plain_ms"] = cuda_ms(lambda: plain.grouped_multi_scale_roi_align(
+                feats_bf, rois, spatial_scales=SCALES, g=8, valid=valid, levels=levels), 3)
+        print(f"group kernel time, {label} bf16 g=8 (CUDA events, mean of 20, in turns "
+              f"{' '.join([*fns, *reversed(fns)])}): " + "; ".join(
+                  f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in times.items())
+              + f"; bound {timed[key]['bound_ms']:.4f} ms ({timed[key]['bound_by']})"
+              + (f"; plain K4 {timed[key]['plain_ms']:.4f} ms" if key == "train" else "")
+              + f" on {card}")
+        del feats_bf
+
+    train, flm0 = timed["train"], timed["flm0"]
+    mean = lambda v: sum(v) / len(v)
     return {"name": "roi_align_group_fwd", "route": "cuda",
             "source": "cald_tpu_torch/csrc/roi_align.cu",
             "replaces": "cald_tpu/ops/pallas_roi_align.py:323",
             "max_abs_err": worst["bf16_features"], "max_abs_err_f32": worst["f32"],
-            "max_abs_err_bf16_mode": worst["bf16_mode"], "ms": sum(times["K4"]) / 2,
-            "plain_ms": plain_ms, "k2_ms_in_turns": times["K2"], "k4_ms_in_turns": times["K4"],
+            "max_abs_err_bf16_mode": worst["bf16_mode"], "ms": mean(train["times"]["K4"]),
+            "ms_bf16_mode": mean(train["times"]["K4 bf16 mode"]), "plain_ms": train["plain_ms"],
+            "k2_ms_in_turns": train["times"]["K2"], "k4_ms_in_turns": train["times"]["K4"],
+            "k4_bf16_mode_ms_in_turns": train["times"]["K4 bf16 mode"],
+            "ms_flm0": mean(flm0["times"]["K4"]),
+            "ms_flm0_bf16_mode": mean(flm0["times"]["K4 bf16 mode"]),
+            "bound_ms_flm0": flm0["bound_ms"], "bound_by_flm0": flm0["bound_by"],
             "library_ms": None,
-            **bound(level_bytes + out_bytes + roi_index_bytes(rois, valid, levels), n_ops,
-                    F32_OPS_S)}
+            **{k: train[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")}}
 
 
 def trace_summary(path: str, top: int = 6) -> dict:

@@ -15,6 +15,9 @@ new, old (CUDA events, mean of 20 launches after one warm-up):
     (B=4, 512 rois per image, a quarter of them jittered gt boxes);
   * K3 on uniform rois like phase 3's (B=4, 512 per image), to see how much
     of K3's time the training rois' overlap costs;
+  * K4 (grouped training forward, g = 8) in its "hi" and "bf16" modes at
+    phase 6's inputs and at the CALD_TPU_ROI_FLM=0 inference shapes (phase
+    3's inputs), with the new K4 "hi" checked bit for bit against the new K2;
   * the new K1 and K3 on their scalar paths (an input one element off a
     16-byte boundary) beside their vector paths;
   * where the new K3's time goes: copies of its source edited to drop its
@@ -22,11 +25,15 @@ new, old (CUDA events, mean of 20 launches after one warm-up):
     gradient, timed in turns with it at phase 6's inputs, beside the
     wrapper's zero-fill of the level gradients.
 
-It also prints what ``nvcc -Xptxas -v`` reports for each version's K1, K2
-and K3 (registers per thread, spills, shared memory), the blocks per SM
-that follow from them and the launch configuration, and the reduction
-instructions in the built code (``cuobjdump -sass``). Writes everything to
-``--out`` as JSON. Exits non-zero without CUDA. JAX is not imported.
+It also prints what ``nvcc -Xptxas -v`` reports for each version's K1-K4
+(registers per thread, spills, shared memory), the blocks per SM that
+follow from them and the launch configuration, and the reduction
+instructions in the built code (``cuobjdump -sass``). For each forward
+instantiation the two sources share it compiles each source ``COMPILES``
+times and prints the registers and spills of every compile and
+whether the PTX matches between the sources and between compiles of one
+source. Writes everything to ``--out`` as JSON. Exits non-zero without
+CUDA. JAX is not imported.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import chip_smoke as cs
@@ -56,15 +65,31 @@ def _misaligned(t):
     return out
 
 
-def _launch_shape(name: str, c: int = 256):
+def fwd_key(name: str):
+    """(feature type, output type, channels a lane, sampling ratio, ROUND) of
+    a mangled ``roi_align_fwd_kernel`` instantiation (ROUND 0 where the
+    source has no such parameter), else None."""
+    m = re.search(r"roi_align_fwd_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|f|S\d*_)"
+                  r"Li(\d+)ELi(\d+)E(?:Lb([01])E)?E", name)
+    if not m:
+        return None
+    t = "f32" if m.group(1) == "f" else "bf16"
+    o = "f32" if m.group(2) == "f" else "bf16"
+    return t, o, int(m.group(3)), int(m.group(4)), int(m.group(5) or 0)
+
+
+def _launch_shape(name: str, c: int = 256, g: int = 8):
     """(threads per block, dynamic shared bytes) of a kernel at S=7, sr=2:
-    the new kernels (one warp per output row; 256 threads per roi) and the
-    old ones (threads across C, a row's sample plan in shared memory)."""
-    new = "roi_align_fwd_kernel" in name and re.search(r"Li[0-9]+ELi[0-9]+E", name)
+    the forward (one warp per output row), the backward (256 threads per
+    roi), the old grouped forward (threads across C, the plan of g rois in
+    shared memory) and the forward before it (threads across C, a row's
+    sample plan in shared memory)."""
     if "roi_align_bwd_kernel" in name and "ILi" in name:
         return 256, (8 * 28 + 8 * 28 + 7 * 28 + 2) * 4
-    if new:
+    if fwd_key(name):
         return 32 * 7, 2 * 7 * 4 * 8
+    if "roi_align_group_kernel" in name:
+        return min(256, c), g * 2 * 7 * 4 * 8
     return min(256, c), 2 * 14 * 4 * 8
 
 
@@ -108,15 +133,21 @@ def _blocks_per_sm(regs: int, threads: int, smem: int) -> int:
     return min(32, 64 // warps, by_regs, by_smem)
 
 
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+COMPILES = 2          # nvcc's output is not always the same twice
+
+
+def _tool(name: str) -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    return os.path.join(CUDA_HOME, "bin", name) if CUDA_HOME else name
+
+
 def ptxas_rows(source: Path) -> list[dict]:
     """Per kernel of ``source``: registers, spill bytes, static shared memory
     from ``nvcc -Xptxas -v`` (sm_90a, -O3, as ``ops/cuda_build.py`` builds)."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
-    res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                          "-Xptxas", "-v", "-c", "-o", os.devnull, str(source)],
-                         capture_output=True, text=True, check=True)
+    res = subprocess.run([_tool("nvcc"), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
+                          str(source)], capture_output=True, text=True, check=True)
     rows, cur = [], None
     for line in res.stderr.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -137,20 +168,62 @@ def ptxas_rows(source: Path) -> list[dict]:
     return [r for r in rows if "registers" in r]
 
 
-def ptxas_report(source: Path) -> list[dict]:
-    """``ptxas_rows`` of the RoIAlign kernels the main path runs, with their
-    launch shapes and blocks per SM."""
-    rows = ptxas_rows(source)
-    # the kernels the main path runs: the forwards at sr = 2 (new) and the
-    # backward
-    keep = [r for r in rows if (
-        "roi_align_bwd_kernel" in r["kernel"]
-        or ("roi_align_fwd_kernel" in r["kernel"] and not re.search(r"ELi[134]EE", r["kernel"])))]
+def ptx_bodies(source: Path) -> dict:
+    """The PTX of each kernel of ``source`` (as ``ptxas_rows`` compiles it),
+    with its own name and the numbers of its branch labels taken out."""
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "k.ptx"
+        subprocess.run([_tool("nvcc"), *NVCC_FLAGS, "-ptx", "-o", str(out), str(source)],
+                       check=True)
+        text = out.read_text()
+    bodies = {}
+    for m in re.finditer(r"\.visible \.entry (\w+)\(", text):
+        body = text[m.start():text.index("\n}\n", m.start())].replace(m.group(1), "KERNEL")
+        bodies[m.group(1)] = re.sub(r"\$L__BB\d+_", "$L__BB_", body)
+    return bodies
+
+
+def ptxas_report(rows: list[dict]) -> list[dict]:
+    """``ptxas_rows`` of the RoIAlign kernels the main paths run (the
+    forwards at sr = 2, the backward, an older source's grouped forward),
+    with their launch shapes and blocks per SM."""
+    def on_path(name):
+        key = fwd_key(name)
+        return ("roi_align_bwd_kernel" in name or "roi_align_group_kernel" in name
+                or (key is not None and key[3] == 2))
+
+    keep = [r for r in rows if on_path(r["kernel"])]
     for r in keep:
         threads, smem = _launch_shape(r["kernel"])
         r["threads"], r["dynamic_smem"] = threads, smem
         r["blocks_per_sm"] = _blocks_per_sm(r["registers"], threads, smem + r["static_smem"])
+        if fwd_key(r["kernel"]):
+            r["instantiation"] = "T={} O={} V={} SR={} ROUND={}".format(*fwd_key(r["kernel"]))
     return keep
+
+
+def shared_forwards(rows: dict, ptx: dict) -> list[dict]:
+    """The forward instantiations both sources compile (ROUND 0 in both),
+    over several compiles of each (``rows[tag]``, ``ptx[tag]``: one entry
+    per compile): registers and spills in each compile, whether the PTX of
+    some compile of the new source equals that of some compile of the old,
+    and whether it varies between compiles of one source (nvcc's output is
+    not always the same twice)."""
+    def by_key(items):
+        return {fwd_key(k): v for k, v in items if fwd_key(k) and fwd_key(k)[4] == 0}
+
+    regs = {t: [by_key((r["kernel"], (r["registers"], r.get("spill_stores", 0)))
+                       for r in compile_rows) for compile_rows in rows[t]] for t in rows}
+    text = {t: [by_key(bodies.items()) for bodies in ptx[t]] for t in ptx}
+    out = []
+    for key in sorted(set(regs["old"][0]) & set(regs["new"][0])):
+        out.append({"instantiation": "T={} O={} V={} SR={}".format(*key[:4]),
+                    "registers_spills_old": [c[key] for c in regs["old"]],
+                    "registers_spills_new": [c[key] for c in regs["new"]],
+                    "ptx_as_old": any(a[key] == b[key] for a in text["old"] for b in text["new"]),
+                    "ptx_varies_old": len({c[key] for c in text["old"]}) > 1,
+                    "ptx_varies_new": len({c[key] for c in text["new"]}) > 1})
+    return out
 
 
 def sass_reductions(lib: Path) -> dict:
@@ -185,29 +258,48 @@ def main() -> int:
     from cald_tpu_torch.ops import roi_align as plain
     from cald_tpu_torch.ops.cuda_build import build_library
     from cald_tpu_torch.ops.roi_align_cuda import (
-        RoIAlignBackward, RoIAlignKernel, RoIAlignTrainForward,
+        RoIAlignBackward, RoIAlignGroupForward, RoIAlignKernel, RoIAlignTrainForward,
     )
 
     card = cs.card_line()
     print(card)
     old_src = Path(args.old).resolve()
+    srcs = {"old": old_src, "new": NEW}
+    # the two libraries and every compile of the report, started together
+    with ThreadPoolExecutor(2 + 4 * COMPILES) as ex:
+        libs = {t: ex.submit(build_library, src) for t, src in srcs.items()}
+        rows = {t: [ex.submit(ptxas_rows, src) for _ in range(COMPILES)]
+                for t, src in srcs.items()}
+        ptx = {t: [ex.submit(ptx_bodies, src) for _ in range(COMPILES)]
+               for t, src in srcs.items()}
+        libs = {t: f.result() for t, f in libs.items()}
+        rows = {t: [f.result() for f in fs] for t, fs in rows.items()}
+        ptx = {t: [f.result() for f in fs] for t, fs in ptx.items()}
     kern = {}
-    for tag, src in (("old", old_src), ("new", NEW)):
-        ks = (RoIAlignKernel(), RoIAlignTrainForward(), RoIAlignBackward())
+    for tag, src in srcs.items():
+        ks = (RoIAlignKernel(), RoIAlignTrainForward(), RoIAlignBackward(),
+              RoIAlignGroupForward())
         for k in ks:
             k.source = src
             k.load()
         kern[tag] = ks
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    for tag, src in (("old", old_src), ("new", NEW)):
-        report[f"ptxas_{tag}"] = ptxas_report(src)
-        report[f"sass_{tag}"] = sass_reductions(build_library(src))
+    for tag in srcs:
+        report[f"ptxas_{tag}"] = ptxas_report(rows[tag][0])
+        report[f"sass_{tag}"] = sass_reductions(libs[tag])
         for r in report[f"ptxas_{tag}"]:
-            print(f"ptxas {tag}: {r['kernel']}: {r['registers']} registers, spills "
+            print(f"ptxas {tag}: {r['kernel']} ({r.get('instantiation', '')}): "
+                  f"{r['registers']} registers, spills "
                   f"{r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} bytes, shared "
                   f"{r['static_smem']} static + {r['dynamic_smem']} dynamic bytes, "
                   f"{r['threads']} threads, {r['blocks_per_sm']} blocks per SM")
         print(f"sass {tag}: reductions {report[f'sass_{tag}']}")
+    report["shared_forwards"] = shared_forwards(rows, ptx)
+    for p in report["shared_forwards"]:
+        print(f"forward {p['instantiation']}, {COMPILES} compiles of each source: "
+              f"(registers, spill stores) old {p['registers_spills_old']}, new "
+              f"{p['registers_spills_new']}; PTX as old: {p['ptx_as_old']}; PTX varies between "
+              f"compiles: old {p['ptx_varies_old']}, new {p['ptx_varies_new']}")
 
     dev = torch.device("cuda", 0)
     timed = {}
@@ -282,6 +374,29 @@ def main() -> int:
         print(f"K3 zero-fill of the level gradients ({mix}): "
               f"{timed[f'K3 zero-fill {mix}']:.4f} ms")
         del fb, cot, cot_mis
+
+    # K4, g = 8, both modes: phase 6's inputs and the FLM=0 inference shapes
+    k2_new = kern["new"][1]
+    k4 = {t: kern[t][3] for t in kern}
+    for shape, (feats, rois, valid) in (("train rois B=4 S=512", mixes["train"]),
+                                        ("FLM=0 inference B=8 N=1000", cs.roi_inputs(dev))):
+        levels = plain.roi_levels(rois, cs.SCALES).contiguous()
+        fb = [f.bfloat16() for f in feats]
+        del feats
+        same = torch.equal(k4["new"](fb, rois, valid, levels, g=8, hi_prec=True,
+                                     spatial_scales=cs.SCALES),
+                           k2_new(fb, rois, valid, levels, spatial_scales=cs.SCALES))
+        report[f"K4 hi equals K2, {shape}"] = same
+        print(f"K4 {shape}: new K4 hi equals new K2 bit for bit: {same}")
+        for mode, hi in (("hi", True), ("bf16", False)):
+            run = {t: (lambda t=t: k4[t](fb, rois, valid, levels, g=8, hi_prec=hi,
+                                         spatial_scales=cs.SCALES)) for t in ("old", "new")}
+            diff = (run["new"]() - run["old"]()).abs().max().item()
+            report[f"K4 new vs old, {shape}, {mode}"] = diff
+            print(f"K4 {shape} {mode}: new vs old max abs difference {diff:.3e}")
+            turns(f"K4 {shape} C=256 bf16 g=8 {mode}", run)
+        del fb
+    del mixes["uniform"]
 
     # the K3 breakdown at phase 6's inputs
     feats, rois, valid = mixes["train"]

@@ -207,24 +207,49 @@ def group_kernel():
 @pytest.mark.parametrize("g", [1, 2, 5, 8])
 @pytest.mark.parametrize("c", [256, 33])
 def test_group_kernel_matches_plain(group_kernel, c, g, hi):
-    """K4 against its plain version in the same mode on f32 features (atol
-    1e-4 "hi"; 5e-2 "bf16", where a t on a rounding boundary may round the
-    other way), bf16 features against the plain f32 version (atol 5e-2);
-    64 rois per image, so g = 5 leaves a short last group; invalid rois are
-    exactly 0."""
+    """K4 against its plain version in the same mode, on f32 features and on
+    the same bf16 features (atol 1e-4 "hi"; 5e-2 "bf16", where a t on a
+    rounding boundary may round the other way), bf16 features against the
+    plain f32 version (atol 5e-2); 64 rois per image, so g = 5 leaves a
+    short last group; invalid rois are exactly 0; g changes no bit of the
+    result."""
     feats, rois, valid = _inputs(c)
+    feats_bf = [f.bfloat16() for f in feats]
     levels = plain.roi_levels(rois, SCALES).contiguous()
     args = dict(spatial_scales=SCALES, valid=valid, levels=levels)
     want = plain.grouped_multi_scale_roi_align(feats, rois, g=g, hi_prec=hi, **args)
+    want_bf = plain.grouped_multi_scale_roi_align(feats_bf, rois, g=g, hi_prec=hi, **args)
     want_f32 = plain.grouped_multi_scale_roi_align(feats, rois, g=g, **args)
     got = group_kernel(feats, rois, valid, levels, g=g, hi_prec=hi, spatial_scales=SCALES)
-    got_bf = group_kernel([f.bfloat16() for f in feats], rois, valid, levels, g=g, hi_prec=hi,
-                          spatial_scales=SCALES)
+    got_bf = group_kernel(feats_bf, rois, valid, levels, g=g, hi_prec=hi, spatial_scales=SCALES)
+    got_g1 = group_kernel(feats_bf, rois, valid, levels, g=1, hi_prec=hi, spatial_scales=SCALES)
     torch.cuda.synchronize()
     assert got.dtype == got_bf.dtype == torch.float32
-    assert (got - want).abs().max().item() < (1e-4 if hi else 5e-2)
+    tol = 1e-4 if hi else 5e-2
+    assert (got - want).abs().max().item() < tol
+    assert (got_bf - want_bf).abs().max().item() < tol
     assert (got_bf - want_f32).abs().max().item() < 5e-2
+    assert torch.equal(got_bf, got_g1)
     assert got[~valid].abs().max().item() == 0.0 and got_bf[~valid].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["c256", "c33", "offset"])
+def test_group_hi_equals_k2(group_kernel, case, dtype):
+    """K4 in "hi" is K2's instantiation: bit for bit K2's output on the same
+    inputs, on the vector path (C=256), the scalar path (C=33) and with a
+    level one element off a 16-byte boundary (the scalar path at C=256)."""
+    feats, rois, valid = _inputs(33 if case == "c33" else 256)
+    feats = [f.to(dtype) for f in feats]
+    if case == "offset":
+        feats[1] = _misaligned(feats[1])
+    levels = plain.roi_levels(rois, SCALES).contiguous()
+    k2 = roi_align_cuda.roi_align_train_fwd_kernel
+    want = k2(feats, rois, valid, levels, spatial_scales=SCALES)
+    got = group_kernel(feats, rois, valid, levels, g=8, hi_prec=True, spatial_scales=SCALES)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[~valid].abs().max().item() == 0.0
 
 
 def test_group_launch_count_and_bad_input(group_kernel):
@@ -241,6 +266,12 @@ def test_group_launch_count_and_bad_input(group_kernel):
     with pytest.raises(TypeError):
         group_kernel([f.half() for f in feats], rois, valid, levels, g=4, hi_prec=True,
                      spatial_scales=SCALES)
+    # K2's limits: output size 1..8, sampling ratio 1..4
+    for size in (dict(output_size=9), dict(sampling_ratio=5)):
+        for hi in (True, False):
+            with pytest.raises(ValueError):
+                group_kernel(feats, rois, valid, levels, g=4, hi_prec=hi, spatial_scales=SCALES,
+                             **size)
     assert group_kernel.launches == before + 1
 
 

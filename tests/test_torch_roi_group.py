@@ -1,9 +1,13 @@
 """The grouped RoIAlign forward of the port (K4's plain version,
 ``ops/roi_align.py::grouped_multi_scale_roi_align``) against the JAX
 package's grouped kernel (``ops/pallas_roi_align.py::_roi_group_kernel``
-under ``CALD_TPU_ROI_GROUP``) in interpret mode; gradients through
-``RoIAlignFunction`` with the group set; the group gate; ``detect`` with
-``CALD_TPU_ROI_FLM=0``. On the CPU in float32."""
+under ``CALD_TPU_ROI_GROUP``) in interpret mode; that neither depends on
+the group size g (why the Hopper kernel, K2's, ignores it); K4's C entry in
+the kernel source; gradients through ``RoIAlignFunction`` with the group
+set; the group gate; ``detect`` with ``CALD_TPU_ROI_FLM=0``. On the CPU in
+float32."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -72,21 +76,77 @@ def test_plain_matches_tpu_grouped_kernel(rng, monkeypatch, interpret_pallas, g,
     np.testing.assert_allclose(to_np(got)[0], np.asarray(want), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("g", [1, 3, 8])
-def test_plain_grouped_is_k2_function(rng, g):
-    """In "hi" the grouped form is K2's function for every roi, wide,
-    border-crossing and invalid ones included (atol 1e-5), whatever g."""
+def _hard_case(rng):
+    """Two images of 21 rois at half size, with wide, border-crossing and
+    tiny rois (beyond the TPU windows) and about 30% invalid ones."""
     feats = [T(rng.normal(0, 1, (2, h // 2, w // 2, 16)).astype(np.float32))
              for h, w in SHAPES]
     rois = np.concatenate([_rois(rng, 21)[None] / 2, _rois(rng, 21)[None] / 2])
     rois[0, :4] = [[-20, -10, 60, 50], [5, 5, 250, 40], [100, 100, 100.5, 100.5],
                    [10, 2, 40, 158]]
     valid = rng.uniform(size=(2, 21)) > 0.3
+    return feats, rois, valid
+
+
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_plain_grouped_is_k2_function(rng, g):
+    """In "hi" the grouped form is K2's function for every roi, wide,
+    border-crossing and invalid ones included (atol 1e-5), whatever g."""
+    feats, rois, valid = _hard_case(rng)
     args = dict(spatial_scales=SCALES, valid=T(valid))
     want = plain.multi_scale_roi_align(feats, T(rois), out_dtype=torch.float32, **args)
     got = plain.grouped_multi_scale_roi_align(feats, T(rois), g=g, **args)
     assert (got - want).abs().max().item() < 1e-5
     assert got[~T(valid)].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("prec", ["hi", "bf16"])
+def test_plain_grouped_does_not_depend_on_g(rng, g, prec):
+    """The property that lets the Hopper kernel ignore g: in both modes the
+    grouped form gives every roi, wide, border-crossing and invalid ones
+    included, bit for bit the value it has when computed alone (g = 1, one
+    roi per chunk)."""
+    feats, rois, valid = _hard_case(rng)
+    args = dict(spatial_scales=SCALES, valid=T(valid), hi_prec=prec == "hi")
+    alone = plain.grouped_multi_scale_roi_align(feats, T(rois), g=1, chunk_size=1, **args)
+    got = plain.grouped_multi_scale_roi_align(feats, T(rois), g=g, **args)
+    assert torch.equal(got, alone)
+    assert got[~T(valid)].abs().max().item() == 0.0
+    if prec == "bf16":            # the mode's rounding points are applied
+        hi = plain.grouped_multi_scale_roi_align(feats, T(rois), g=g, spatial_scales=SCALES,
+                                                 valid=T(valid))
+        assert not torch.equal(got, hi)
+
+
+def test_tpu_grouped_kernel_does_not_depend_on_g(rng, monkeypatch, interpret_pallas):
+    """The JAX package's grouped kernel in its "bf16" mode at g = 2 and g = 4,
+    on rois inside its training window: the TPU kernel's function does not
+    depend on g either (atol 5e-2: both round t to bf16, summed in another
+    order by the block-diagonal products of another size)."""
+    monkeypatch.setenv("CALD_TPU_ROI_GROUP_PREC", "bf16")
+    feats = [jnp.asarray(f) for f in _feats(rng)]
+    rois = jnp.asarray(_rois(rng, 19))
+    out = {}
+    for g in (2, 4):
+        monkeypatch.setenv("CALD_TPU_ROI_GROUP", str(g))
+        out[g] = np.asarray(pallas_multi_scale_roi_align(feats, rois, spatial_scales=SCALES,
+                                                         window=WIN_TRAIN))
+    assert out[2].shape == (19, 7, 7, 128) and np.isfinite(out[2]).all()
+    np.testing.assert_allclose(out[4], out[2], atol=5e-2, rtol=0)
+
+
+def test_k4_entry_runs_the_forward_kernel():
+    """``csrc/roi_align.cu`` holds two kernels, the forward (K1, K2, K4) and
+    the backward (K3); K4's C entry goes through the forward's launcher with
+    float32 output and the "bf16" mode's switch."""
+    src = (roi_align_cuda.CSRC / "roi_align.cu").read_text()
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src)
+    assert sorted(kernels) == ["roi_align_bwd_kernel", "roi_align_fwd_kernel"]
+    body = src[src.index('extern "C" int cald_roi_align_group_fwd('):]
+    body = body[:body.index("\n}\n")]
+    assert "<<<" not in body
+    assert re.search(r"launch_fwd\([^;]*dtype, 1, hi_prec \? 0 : 1, stream\);", body)
 
 
 def test_gradients_through_the_group_match_jax(rng, monkeypatch, interpret_pallas):
