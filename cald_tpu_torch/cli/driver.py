@@ -1,5 +1,6 @@
 """The active-learning cycle driver (port of ``cald_tpu/cli/driver.py`` for
-Faster R-CNN with the ``cald`` and ``random`` strategies).
+Faster R-CNN with the ``cald``, ``random``, ``ltc`` and ``lsc`` strategies,
+frozen or group norms).
 
 Cycle structure (the reference's):
     for cycle: train a fresh detector on the labeled set -> evaluate ->
@@ -20,17 +21,23 @@ JAX's key streams become ``torch.Generator``s on the run's device, seeded from
 the same numbers (their draws are the port's own):
   * the samplers' Gumbel noise of epoch e, ``fold_in(key(seed), e)`` in JAX:
     ``stream_generator(device, seed, e)``;
-  * the augmentation uniforms of cycle k's scoring, ``fold_in(key(seed + 17),
-    k)`` in JAX: ``stream_generator(device, seed + 17, k)``;
+  * the augmentation draws (CALD) and noise normals (LS/C) of cycle k's
+    scoring, ``fold_in(key(seed + 17), k)`` in JAX:
+    ``stream_generator(device, seed + 17, k)``;
 where ``stream_generator(device, a, b)`` is seeded with the first 63 bits of
 ``np.random.SeedSequence([a, b])``'s state. The model init is
 ``models/init.py::random_init_`` with ``seed`` (the JAX package's
 ``create_train_state(..., seed=cfg.seed)``), then the pretrained backbone
 where one is given.
 
-Not ported yet (they raise ``NotImplementedError``): the strategies ll4al,
-vaal, ssm, ltc and lsc, the models other than Faster R-CNN (ROADMAP slice 6),
-``--norm group`` and COCO (slice 6); the multi-process branches (slice 7).
+Not ported yet (they raise ``NotImplementedError``): the strategies ssm,
+ll4al and vaal (ROADMAP queue 1 item 7), the models other than Faster R-CNN
+(item 8), COCO (item 9), the multi-process branches (item 11) and
+``--score-shrink-slice`` (item 13).
+
+Known difference: ``--pretrained-backbone`` with ``--norm group`` raises
+``ValueError`` before any work. The JAX package fails too, later and with
+another message: its importer fills FrozenBatchNorm leaves only.
 """
 
 from __future__ import annotations
@@ -65,9 +72,11 @@ from cald_tpu_torch.models.matcher import generator_gumbel
 from cald_tpu_torch.strategies.cald import (
     CALDConfig, cald_select, labeled_class_counts, make_cald_score_fn, score_pool,
 )
+from cald_tpu_torch.strategies.lsc import lsc_scores, make_lsc_score_fn
+from cald_tpu_torch.strategies.ltc import make_ltc_score_fn, run_ltc
 from cald_tpu_torch.strategies.random_strategy import random_select
 
-STRATEGIES = ("cald", "random")
+STRATEGIES = ("cald", "random", "ltc", "lsc")
 
 
 def stream_generator(device: torch.device, a: int, b: int) -> torch.Generator:
@@ -78,17 +87,21 @@ def stream_generator(device: torch.device, a: int, b: int) -> torch.Generator:
 
 
 def _check_supported(cfg: ALConfig):
-    """Refuse, before any work, what the port does not run yet."""
+    """Refuse, before any work, what the port does not run yet, and
+    ``--pretrained-backbone`` under group norm, which has no weights to
+    import into."""
     if cfg.strategy not in STRATEGIES:
         raise NotImplementedError(f"strategy {cfg.strategy!r} is not ported yet "
-                                  "(ROADMAP slice 6)")
+                                  "(ROADMAP queue 1 item 7)")
     if cfg.model != "faster":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet (ROADMAP slice 6)")
-    if cfg.norm != "frozen":
-        raise NotImplementedError(f"--norm {cfg.norm} is not ported yet (ROADMAP slice 6)")
+        raise NotImplementedError(f"model {cfg.model!r} is not ported yet "
+                                  "(ROADMAP queue 1 item 8)")
     if cfg.score_shrink_slice:
-        raise NotImplementedError("--score-shrink-slice is not ported yet (ROADMAP slice 6)")
-    expand_aug_string(cfg.augs)            # refuses the photometric codes
+        raise NotImplementedError("--score-shrink-slice is not ported yet "
+                                  "(ROADMAP queue 1 item 13)")
+    if cfg.norm == "group" and cfg.pretrained_backbone:
+        raise ValueError("--pretrained-backbone imports FrozenBatchNorm statistics; "
+                         "a --norm group backbone has none")
 
 
 def build_datasets(cfg: ALConfig):
@@ -97,23 +110,26 @@ def build_datasets(cfg: ALConfig):
     if cfg.dataset == "voc2012":
         return get_voc2012(cfg.data_path, "trainval"), get_voc2012(cfg.data_path, "val")
     if "coco" in cfg.dataset:
-        raise NotImplementedError("COCO is not ported yet (ROADMAP slice 6)")
+        raise NotImplementedError("COCO is not ported yet (ROADMAP queue 1 item 9)")
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
 def build_model(cfg: ALConfig, num_classes: int):
     """Returns (model, frozen parameter-name prefixes); the weights are
-    zeros until ``_fresh_state`` initialises them."""
+    zeros until ``_fresh_state`` initialises them. Nothing is frozen under
+    group norm or in the tiny model."""
     if cfg.model != "faster":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet (ROADMAP slice 6)")
+        raise NotImplementedError(f"model {cfg.model!r} is not ported yet "
+                                  "(ROADMAP queue 1 item 8)")
     if cfg.tiny:
-        mcfg = FasterRCNNConfig(num_classes=num_classes, backbone="tiny",
+        mcfg = FasterRCNNConfig(num_classes=num_classes, backbone="tiny", norm=cfg.norm,
                                 rpn_pre_nms_top_n_train=128, rpn_pre_nms_top_n_test=128,
                                 rpn_post_nms_top_n_train=64, rpn_post_nms_top_n_test=64,
                                 rpn_batch_size_per_image=32, box_batch_size_per_image=32,
                                 detections_per_img=16, representation_size=64)
         return FasterRCNN(mcfg), ()
-    return FasterRCNN(FasterRCNNConfig(num_classes=num_classes)), RESNET_FROZEN_L3
+    frozen = RESNET_FROZEN_L3 if cfg.norm == "frozen" else ()
+    return FasterRCNN(FasterRCNNConfig(num_classes=num_classes, norm=cfg.norm)), frozen
 
 
 def _loaders(cfg: ALConfig, dataset, indices, *, batch_size, train: bool, canvases,
@@ -197,16 +213,23 @@ def score_and_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolStat
     budget = cfg.budget_num
     if cfg.strategy == "random":
         return subset[random_select(len(subset), budget, rng)]
-    if cfg.strategy != "cald":
+    if cfg.strategy not in STRATEGIES:
         raise NotImplementedError(f"strategy {cfg.strategy!r} is not ported yet "
-                                  "(ROADMAP slice 6)")
-    ccfg = CALDConfig(aug_names=tuple(expand_aug_string(cfg.augs)), base_point=cfg.bp,
-                      mutual_range=cfg.mr, uniform=cfg.uniform, no_mutual=cfg.no_mutual)
-    score_fn = make_cald_score_fn(_scoring_model(cfg, model), ccfg, cfg.num_classes)
+                                  "(ROADMAP queue 1 item 7)")
     loader = _loaders(cfg, dataset, subset, batch_size=cfg.score_batch_size, train=False,
                       canvases=canvases, group_ids=group_ids)
-    consistency, corrs = score_pool(score_fn, loader, subset,
-                                    stream_generator(device, cfg.seed + 17, cycle))
+    generator = stream_generator(device, cfg.seed + 17, cycle)
+    scoring_model = _scoring_model(cfg, model)
+    if cfg.strategy == "ltc":
+        u = run_ltc(make_ltc_score_fn(scoring_model), loader, subset, device)
+        return subset[np.argsort(u, kind="stable")[:budget]]
+    if cfg.strategy == "lsc":
+        s = lsc_scores(make_lsc_score_fn(scoring_model), loader, subset, generator)
+        return subset[np.argsort(s, kind="stable")[:budget]]
+    ccfg = CALDConfig(aug_names=tuple(expand_aug_string(cfg.augs)), base_point=cfg.bp,
+                      mutual_range=cfg.mr, uniform=cfg.uniform, no_mutual=cfg.no_mutual)
+    score_fn = make_cald_score_fn(scoring_model, ccfg, cfg.num_classes)
+    consistency, corrs = score_pool(score_fn, loader, subset, generator)
     labeled_mean = labeled_class_counts(dataset, pool.labeled, cfg.num_classes - 1)
     return subset[cald_select(consistency, corrs, labeled_mean, budget, ccfg)]
 

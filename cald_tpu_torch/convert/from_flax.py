@@ -4,9 +4,11 @@
 Input is the Flax ``{"params": ..., "frozen": ...}`` tree with numpy (or any
 array-like) leaves; nothing of JAX is imported. Conv kernels go from HWIO to
 OIHW, Dense kernels from (in, out) to (out, in), FrozenBN ``scale``/``bias``/
-``mean``/``var`` carry across. Module paths are the same in both packages
-except the Flax auto-named norms, which take torchvision's names. Every leaf
-is consumed exactly once; a leaf left over raises.
+``mean``/``var`` carry across, and a GroupNorm's ``params`` ``scale`` becomes
+its ``weight``. Module paths are the same in both packages except the Flax
+auto-named norms (``FrozenBatchNorm_i`` or ``GroupNorm_i``), which take
+torchvision's names. Every leaf is consumed exactly once; a leaf left over
+raises.
 
 Any tree shaped like the params collection maps the same way with
 ``flax_to_state_dict({"params": tree})``: the JAX package's gradients
@@ -23,11 +25,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
-# Flax's auto-named FrozenBatchNorm_i -> the port's names, by parent module
-_BACKBONE_NORMS = {"FrozenBatchNorm_0": "bn1"}
-_BLOCK_NORMS = {"FrozenBatchNorm_0": "bn1", "FrozenBatchNorm_1": "bn2",
-                "FrozenBatchNorm_2": "bn3", "FrozenBatchNorm_3": "downsample_bn"}
+# Flax's auto-named norms (FrozenBatchNorm_i or GroupNorm_i) -> the port's
+# names, by parent module and index i
+_BACKBONE_NORMS = ("bn1",)
+_BLOCK_NORMS = ("bn1", "bn2", "bn3", "downsample_bn")
 _BLOCK = re.compile(r"layer\d+_\d+$")
+_NORM = re.compile(r"(FrozenBatchNorm|GroupNorm)_(\d+)$")
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -41,9 +44,10 @@ def _leaves(tree: Mapping, prefix=()):
 def _module_path(path: tuple) -> str:
     names = list(path)
     for i, name in enumerate(names):
-        if name.startswith("FrozenBatchNorm_"):
+        m = _NORM.match(name)
+        if m:
             table = _BLOCK_NORMS if i and _BLOCK.match(names[i - 1]) else _BACKBONE_NORMS
-            names[i] = table[name]
+            names[i] = table[int(m.group(2))]
     return ".".join(names)
 
 
@@ -66,6 +70,8 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
                     a = a.T
                 else:
                     raise ValueError(f"kernel of rank {a.ndim} at {'/'.join(path)}")
+            elif coll == "params" and name == "scale" and mod and mod[-1].startswith("GroupNorm_"):
+                name = "weight"
             elif (coll, name) not in {("params", "bias"), ("frozen", "scale"),
                                       ("frozen", "bias"), ("frozen", "mean"),
                                       ("frozen", "var")}:

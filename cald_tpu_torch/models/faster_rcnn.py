@@ -50,6 +50,7 @@ class FasterRCNNConfig:
 
     num_classes: int = 21
     backbone: str = "resnet50"          # resnet50 | tiny
+    norm: str = "frozen"                # the backbone's norms: frozen | group
     # conv/matmul compute dtype; box decoding, NMS and scores stay float32
     compute_dtype: str = "bfloat16"
     fpn_channels: int = 256
@@ -97,7 +98,7 @@ class FasterRCNN(nn.Module):
         dt = None if cfg.compute_dtype == "float32" else getattr(torch, cfg.compute_dtype)
         self.dtype = dt
         blocks, width = BACKBONES[cfg.backbone]
-        self.backbone = ResNetBackbone(blocks, width, dtype=dt)
+        self.backbone = ResNetBackbone(blocks, width, dtype=dt, norm=cfg.norm)
         self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, dtype=dt)
         a_per_cell = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
         self.rpn_head = RPNHead(a_per_cell, cfg.fpn_channels, dtype=dt)

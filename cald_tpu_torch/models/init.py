@@ -3,8 +3,9 @@
 (``cald_tpu/models/layers.py::conv_kaiming``), ``normal(0.01)`` detection
 heads (the RPN head and the box predictor), truncated lecun-normal Dense
 layers (Flax's default), zero biases; frozen norms keep their identity
-statistics. The draws come from a ``torch.Generator`` seeded with ``seed``,
-so they are the port's own, not the JAX package's.
+statistics, and GroupNorms get Flax's scale 1 and bias 0. The draws come
+from a ``torch.Generator`` seeded with ``seed``, so they are the port's
+own, not the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import math
 import torch
 from torch import nn
 
-from cald_tpu_torch.models.layers import Conv, Dense
+from cald_tpu_torch.models.layers import Conv, Dense, GroupNorm
 
 # Flax's truncated normal rescales its std by the std of a unit normal cut at +-2
 _TRUNC_STD = 0.87962566103423978
@@ -26,11 +27,14 @@ def _truncated_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
 
 
 def random_init_(model: nn.Module, seed: int) -> None:
-    """Re-initialise every ``Conv`` and ``Dense`` of ``model`` in place."""
+    """Re-initialise every ``Conv``, ``Dense`` and ``GroupNorm`` of ``model``
+    in place (the GroupNorms draw nothing from the generator)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, Conv):
+            if isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+            elif isinstance(m, Conv):
                 o, _, kh, kw = m.weight.shape
                 if name.startswith("rpn_head"):
                     m.weight.normal_(0.0, 0.01, generator=g)

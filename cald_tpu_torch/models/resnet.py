@@ -3,10 +3,13 @@
 Tensors are NCHW; the detector passes them in ``torch.channels_last`` memory
 format. Module names follow the JAX package (``layer{stage}_{block}``,
 ``conv1..3``, ``downsample_conv``), with the Flax auto-named norms given
-torchvision's names (``bn1..3``, ``downsample_bn``).
+torchvision's names (``bn1..3``, ``downsample_bn``). ``norm`` is "frozen"
+(FrozenBatchNorm, the reference's) or "group" (Flax's GroupNorm,
+``models/layers.py::make_norm``).
 
-The fused inference configuration is opt-in, as in the JAX package:
-``forward(x, allow_fused=True)`` with ``CALD_TPU_PALLAS_BNECK`` set runs
+The fused inference configuration is opt-in and frozen-norm only, as in
+the JAX package: ``forward(x, allow_fused=True)`` with
+``CALD_TPU_PALLAS_BNECK`` set and ``norm="frozen"`` runs
 each stage's stride-1 identity suffix with every frozen norm folded into its
 conv, through ``fused_block_kernel`` (K5) once per block (``"1"`` or any
 other non-empty value) or ``fused_stage_kernel`` (K6) per group of chained
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cald_tpu_torch.models.layers import Conv, FrozenBatchNorm
+from cald_tpu_torch.models.layers import Conv, make_norm
 from cald_tpu_torch.ops.bottleneck import fold_frozen
 from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
 
@@ -37,20 +40,21 @@ class Bottleneck(nn.Module):
     change."""
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, norm: str = "frozen"):
         super().__init__()
         out_ch = planes * 4
+        make = make_norm(norm)
         self.conv1 = Conv(in_ch, planes, 1, bias=False, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(planes)
+        self.bn1 = make(planes)
         self.conv2 = Conv(planes, planes, 3, stride=stride, padding=1, bias=False,
                           dtype=dtype)
-        self.bn2 = FrozenBatchNorm(planes)
+        self.bn2 = make(planes)
         self.conv3 = Conv(planes, out_ch, 1, bias=False, dtype=dtype)
-        self.bn3 = FrozenBatchNorm(out_ch)
+        self.bn3 = make(out_ch)
         if in_ch != out_ch or stride != 1:
             self.downsample_conv = Conv(in_ch, out_ch, 1, stride=stride, bias=False,
                                         dtype=dtype)
-            self.downsample_bn = FrozenBatchNorm(out_ch)
+            self.downsample_bn = make(out_ch)
         else:
             self.downsample_conv = None
 
@@ -83,10 +87,11 @@ class ResNetBackbone(nn.Module):
     """
 
     def __init__(self, blocks_per_stage: Sequence[int] = (3, 4, 6, 3), width: int = 64,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, norm: str = "frozen"):
         super().__init__()
+        self.norm = norm
         self.conv1 = Conv(3, width, 7, stride=2, padding=3, bias=False, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(width)
+        self.bn1 = make_norm(norm)(width)
         self.stages = []
         in_ch = width
         for stage, n_blocks in enumerate(blocks_per_stage):
@@ -95,16 +100,18 @@ class ResNetBackbone(nn.Module):
             for b in range(n_blocks):
                 name = f"layer{stage + 1}_{b}"
                 stride = 2 if (b == 0 and stage > 0) else 1
-                self.add_module(name, Bottleneck(in_ch, planes, stride, dtype))
+                self.add_module(name, Bottleneck(in_ch, planes, stride, dtype, norm))
                 in_ch = planes * 4
                 names.append(name)
             self.stages.append(names)
         self.out_channels = tuple(width * 2 ** s * 4 for s in range(len(blocks_per_stage)))
 
-    @staticmethod
-    def _fuse_gate() -> str:
+    def _fuse_gate(self) -> str:
         """``CALD_TPU_PALLAS_BNECK``: "" (the default) off, "stage" for K6,
-        any other value for K5."""
+        any other value for K5; always off under group norm, which has no
+        affine form to fold."""
+        if self.norm != "frozen":
+            return ""
         return os.environ.get("CALD_TPU_PALLAS_BNECK", "")
 
     def forward(self, x: torch.Tensor, *, allow_fused: bool = False) -> dict[str, torch.Tensor]:

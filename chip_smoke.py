@@ -91,15 +91,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
      scoring; then one score call with CALD_TPU_ROI_FLM=0 (K4 twice, K1
      none); prints each cycle's wall time and its train/eval/score split,
      and from cycle 0's torch.profiler trace (``--profile-dir``, which slows
-     that cycle) the device busy share and the kernels that took the most.
+     that cycle) the device busy share and the kernels that took the most;
+ 12. group norms, the rest of the aug protocol, LT/C and LS/C: (a) the
+     group-norm R50-FPN pyramid on the card against the CPU on a small
+     input (f32 1e-3 of the largest value; bf16 against the CPU's f32, mean
+     relative error < 0.06 and max < 0.08 per level); (b) ``al_loop`` with
+     ``norm="group"`` and LS/C at phase 11's data and cut, nothing frozen,
+     no pretrained backbone, CALD_TPU_ROI_GROUP unset: finite losses,
+     labeled 16 -> 24, conv1/bn1/layer1 changed by training, one K2 and one
+     K3 per step, one K1 per detect (LS/C: a base detect of 8 and one of 48
+     noisy images per score batch), the peak device memory of the score
+     call; (c) from cycle 0's checkpoint, one ``score_and_select`` with LT/C
+     (one K1 per batch) and one with CALD 'FCDRGS' (two per batch, 6 augs
+     in the aug detect): the budget selected, scores finite in [0, 1]; warm
+     LS/C and LT/C score calls (ms/call, images/s, LS/C's peak memory) and
+     group-norm training steps (ms/step); (d) tests/test_learnability.py's
+     configuration on the card (tiny, group norms, 32 learnable 96x128
+     images, 30 epochs, lr 0.005, steps 20/26): per-class AP50 > 0.7 for
+     aeroplane, bicycle and bird and their mean > 0.85, with its wall time.
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
-K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9), its time (K5 and K6: on
-weights restaged once; ``ms_with_restaging`` through the wrappers) and its
-plain version's, its bound (the larger of its bytes over 3.35 TB/s and its
-operations over the peak of their type, from this run's inputs) and
-``library_ms`` null: no single PyTorch call computes RoIAlign or a
-bottleneck.
+K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
+CALD 'FCDRGS' score call and K2/K3's per group-norm step from phase 12),
+its time (K5 and K6: on weights restaged once; ``ms_with_restaging``
+through the wrappers) and its plain version's, its bound (the larger of
+its bytes over 3.35 TB/s and its operations over the peak of their type,
+from this run's inputs) and ``library_ms`` null: no single PyTorch call
+computes RoIAlign or a bottleneck.
 
 The line before the last is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. JAX is not imported.
@@ -1050,6 +1068,84 @@ def trace_summary(path: str, top: int = 6) -> dict:
             "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])}
 
 
+class StageCounts:
+    """While entered, patches ``cli.driver`` to record by stage of
+    ``al_loop`` (train_cycle, evaluate, score_and_select) each kernel's
+    launches, the training steps and their losses, the detects (stage,
+    images), the first layers' parameters of each trained model, and the
+    peak device memory of each score call. Every count is set to 0 on
+    entry and read on exit (``launches``)."""
+
+    FIRST_LAYERS = ("backbone.conv1", "backbone.bn1", "backbone.layer1")
+
+    def __init__(self, driver, kernels: dict, device):
+        self.driver, self.kernels, self.device = driver, kernels, device
+        self.stages = {"train": [], "eval": [], "score": []}
+        self.steps, self.losses, self.detects, self.trained, self.score_peak = [], [], [], [], []
+        self.stage = None
+
+    def _counted(self, stage, fn):
+        import torch
+
+        def run(*args, **kwargs):
+            before = {k: v.launches for k, v in self.kernels.items()}
+            self.stage = stage
+            if stage == "score" and self.device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            if stage == "score" and self.device.type == "cuda":
+                torch.cuda.synchronize()
+                self.score_peak.append(torch.cuda.max_memory_allocated())
+            if stage == "train":
+                self.trained.append({n: p.detach().cpu().clone()
+                                     for n, p in out[0].named_parameters()
+                                     if n.startswith(self.FIRST_LAYERS)})
+            self.stages[stage].append({k: v.launches - before[k] for k, v in self.kernels.items()})
+            self.stage = None
+            return out
+        return run
+
+    def __enter__(self):
+        driver, orig_epoch = self.driver, self.driver.train_one_epoch
+        self._detect = driver.FasterRCNN.detect
+
+        def epoch_counting(step_fn, *args, **kwargs):
+            def step(*a):
+                m = step_fn(*a)
+                self.losses.append({k: float(v) for k, v in m.items()})
+                self.steps.append(1)
+                return m
+            return orig_epoch(step, *args, **kwargs)
+
+        def detect_counting(model, images, valid_hw):
+            self.detects.append((self.stage, images.shape[0]))
+            return self._detect(model, images, valid_hw)
+
+        patches = {"train_cycle": self._counted("train", driver.train_cycle),
+                   "evaluate": self._counted("eval", driver.evaluate),
+                   "score_and_select": self._counted("score", driver.score_and_select),
+                   "train_one_epoch": epoch_counting}
+        self._saved = {k: getattr(driver, k) for k in patches}
+        for k, v in patches.items():
+            setattr(driver, k, v)
+        driver.FasterRCNN.detect = detect_counting
+        for k in self.kernels.values():
+            k.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = {name: k.launches for name, k in self.kernels.items()}
+        for k, v in self._saved.items():
+            setattr(self.driver, k, v)
+        self.driver.FasterRCNN.detect = self._detect
+        return False
+
+    def total(self, *stages) -> dict:
+        return {k: sum(c[k] for st in stages for c in self.stages[st]) for k in self.kernels}
+
+
+
 AL_TRAIN_IMAGES = 48
 AL_TEST_IMAGES = 16
 AL_IMAGE_HW = (375, 500)         # a typical VOC image
@@ -1066,17 +1162,11 @@ def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
     from cald_tpu_torch.cli.config import ALConfig
     from cald_tpu_torch.convert.torchvision_import import backbone_state_dict
     from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
-    from cald_tpu_torch.data.synthetic import make_learnable_voc
-    from cald_tpu_torch.data.voc import get_voc2007
     from cald_tpu_torch.engine.checkpoint import load_checkpoint
     from cald_tpu_torch.models.init import random_init_
     from cald_tpu_torch.strategies.cald import CALDConfig, make_cald_score_fn, score_pool
 
-    train_root = make_learnable_voc(os.path.join(workdir, "train"), AL_TRAIN_IMAGES,
-                                    AL_IMAGE_HW, seed=SEED, image_format="npy")
-    test_root = make_learnable_voc(os.path.join(workdir, "test"), AL_TEST_IMAGES, AL_IMAGE_HW,
-                                   seed=SEED + 1, image_format="npy")
-    datasets = (get_voc2007(train_root, "trainval"), get_voc2007(test_root, "test"))
+    train_root, datasets = _al_data(workdir)
     cfg = ALConfig(data_path=train_root, strategy="cald", augs="FCDR", cycles=2, epochs=1,
                    batch_size=TRAIN_BATCH, init_num=16, budget_num=8, score_batch_size=BATCH,
                    workers=4, print_freq=1, output_dir=os.path.join(workdir, "out"),
@@ -1101,53 +1191,15 @@ def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
     torch.save(backbone_state_dict(model), cfg.pretrained_backbone)
     del model
 
-    # launches by stage: training, evaluation, scoring
-    stage_counts = {"train": [], "eval": [], "score": []}
-    steps, detects, losses = [], [], []
-
-    def counted(stage, fn):
-        def run(*args, **kwargs):
-            before = {k: v.launches for k, v in kernels.items()}
-            out = fn(*args, **kwargs)
-            stage_counts[stage].append({k: v.launches - before[k] for k, v in kernels.items()})
-            return out
-        return run
-
-    orig_epoch, orig_detect = driver.train_one_epoch, driver.FasterRCNN.detect
-
-    def epoch_counting(step_fn, *args, **kwargs):
-        def step(*a):
-            m = step_fn(*a)
-            losses.append({k: float(v) for k, v in m.items()})
-            steps.append(1)
-            return m
-        return orig_epoch(step, *args, **kwargs)
-
-    def detect_counting(self, images, valid_hw):
-        detects.append(images.shape[0])
-        return orig_detect(self, images, valid_hw)
-
     os.environ["CALD_TPU_ROI_GROUP"] = "8"
-    patches = {"train_cycle": counted("train", driver.train_cycle),
-               "evaluate": counted("eval", driver.evaluate),
-               "score_and_select": counted("score", driver.score_and_select),
-               "train_one_epoch": epoch_counting}
-    saved = {k: getattr(driver, k) for k in patches}
-    for k, v in patches.items():
-        setattr(driver, k, v)
-    driver.FasterRCNN.detect = detect_counting
-    try:
-        for k in kernels.values():
-            k.launches = 0
+    counts = StageCounts(driver, kernels, device)
+    with counts:
         t0 = time.perf_counter()
         history = driver.al_loop(cfg, datasets=datasets)
         wall = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in kernels.items()}
-    finally:
-        for k, v in saved.items():
-            setattr(driver, k, v)
-        driver.FasterRCNN.detect = orig_detect
-    n_detect = len(detects)
+    launches, stage_counts, steps, losses = (counts.launches, counts.stages, counts.steps,
+                                             counts.losses)
+    n_detect = len(counts.detects)
 
     trace = trace_summary(os.path.join(cfg.profile_dir, "cycle_0_trace.json"))
     print(f"al loop: cycle 0 under torch.profiler: {trace['kernel_ms']:.1f} ms of kernels in a "
@@ -1161,9 +1213,7 @@ def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
               f"{h['split_s']['score']:.2f}) on {card}")
     print(f"al loop: {len(steps)} training steps, {n_detect} detects; launches by stage "
           f"{json.dumps(stage_counts)}; total {launches}; {wall:.2f} s")
-    train_k = {k: sum(c[k] for c in stage_counts["train"]) for k in kernels}
-    infer_k = {k: sum(c[k] for st in ("eval", "score") for c in stage_counts[st])
-               for k in kernels}
+    train_k, infer_k = counts.total("train"), counts.total("eval", "score")
     if not (len(steps) > 0 and train_k["roi_align_group_fwd"] == len(steps)
             and train_k["roi_align_bwd"] == len(steps) and train_k["roi_align_train_fwd"] == 0
             and train_k["roi_align"] == 0):
@@ -1209,6 +1259,263 @@ def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
         raise AssertionError("CALD_TPU_ROI_FLM=0 scoring did not run K4 twice without K1")
     return {"history": history, "launches": launches, "steps": len(steps), "wall_s": wall,
             "trace": trace}
+
+
+def group_pyramid_check(device) -> dict:
+    """Phase 12(a): the R50-FPN pyramid with group norms (the seeded init,
+    GroupNorm scale 1 and bias 0) on the card against the CPU on a small
+    input: f32 on both with TF32 off (max error 1e-3 of the level's largest
+    magnitude, as phase 4), and bf16 on the card against f32 on the CPU
+    (per level, mean error < 0.06 of the mean magnitude and max error <
+    0.08 of the largest; the CPU's own bf16 pyramid is 0.025-0.028 and at
+    most 0.037 off)."""
+    import torch
+
+    from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
+    from cald_tpu_torch.models.init import random_init_
+
+    cfg = FasterRCNNConfig(num_classes=NUM_CLASSES, norm="group", compute_dtype="float32")
+    f32 = FasterRCNN(cfg).eval()
+    random_init_(f32, SEED)
+    bf16 = FasterRCNN(dataclasses.replace(cfg, compute_dtype="bfloat16")).eval()
+    bf16.load_state_dict(f32.state_dict())
+    images = torch.from_numpy(make_pool(BATCH, seed=SEED + 2)[0].images[:2, :128, :192].copy())
+    hw = torch.tensor([[128, 192], [100, 150]], dtype=torch.int32)
+    with torch.inference_mode():
+        want = f32.features(images, hw)
+    f32.to(device)
+    bf16.to(device)
+    with torch.inference_mode():
+        got32 = [g.cpu() for g in f32.features(images.to(device), hw.to(device))]
+        got16 = [g.float().cpu() for g in bf16.features(images.to(device), hw.to(device))]
+    err32 = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got32, want))
+    mean16 = [((g - w).abs().mean() / w.abs().mean()).item() for g, w in zip(got16, want)]
+    max16 = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got16, want)]
+    print(f"group norm: R50-FPN pyramid on 2x128x192, f32 GPU vs CPU max relative error "
+          f"{err32:.3e} (limit 1e-3); bf16 GPU vs f32 CPU per level: mean relative "
+          f"{[f'{e:.4f}' for e in mean16]} (limit 0.06), max relative "
+          f"{[f'{e:.4f}' for e in max16]} (limit 0.08)")
+    if not (err32 <= 1e-3 and max(mean16) < 0.06 and max(max16) < 0.08):
+        raise AssertionError("the group-norm pyramid on the GPU disagrees with the CPU path")
+    return {"f32_max_rel": err32, "bf16_mean_rel": mean16, "bf16_max_rel": max16}
+
+
+def _al_data(workdir: str):
+    """Phase 11's synthetic VOC trees (48 trainval, 16 test, 375x500 .npy)
+    under ``workdir``; returns (train root, (trainval, test) datasets)."""
+    from cald_tpu_torch.data.synthetic import make_learnable_voc
+    from cald_tpu_torch.data.voc import get_voc2007
+
+    train_root = make_learnable_voc(os.path.join(workdir, "train"), AL_TRAIN_IMAGES,
+                                    AL_IMAGE_HW, seed=SEED, image_format="npy")
+    test_root = make_learnable_voc(os.path.join(workdir, "test"), AL_TEST_IMAGES, AL_IMAGE_HW,
+                                   seed=SEED + 1, image_format="npy")
+    return train_root, (get_voc2007(train_root, "trainval"), get_voc2007(test_root, "test"))
+
+
+def _warm_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm-up
+    call, host clock around work that ends in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def group_al_phase(device, kernels: dict, card: str, workdir: str) -> dict:
+    """Phase 12(b) and (c): ``al_loop`` with group norms and LS/C (nothing
+    frozen, no pretrained backbone, CALD_TPU_ROI_GROUP unset), then LT/C
+    and CALD 'FCDRGS' from cycle 0's checkpoint, and the warm LS/C and
+    LT/C score calls and group-norm training steps."""
+    import torch
+
+    from cald_tpu_torch.augment.suite import generator_draw
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.cli.config import ALConfig
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.engine.checkpoint import load_checkpoint
+    from cald_tpu_torch.engine.optim import make_sgd
+    from cald_tpu_torch.engine.train import make_train_step
+    from cald_tpu_torch.models.init import random_init_
+    from cald_tpu_torch.models.matcher import generator_gumbel
+    from cald_tpu_torch.strategies.lsc import make_lsc_score_fn
+    from cald_tpu_torch.strategies.ltc import make_ltc_score_fn
+
+    train_root, datasets = _al_data(workdir)
+    cfg = ALConfig(data_path=train_root, norm="group", strategy="lsc", cycles=2, epochs=1,
+                   batch_size=TRAIN_BATCH, init_num=16, budget_num=8, score_batch_size=BATCH,
+                   workers=4, print_freq=1, output_dir=os.path.join(workdir, "out"),
+                   device=device.type).resolve()
+    num_classes = len(datasets[0].class_names)
+    n_pool = AL_TRAIN_IMAGES - cfg.init_num
+    n_score_batches = -(-n_pool // BATCH)
+
+    # (b) the loop
+    counts = StageCounts(driver, kernels, device)
+    with counts:
+        t0 = time.perf_counter()
+        history = driver.al_loop(cfg, datasets=datasets)
+        wall = time.perf_counter() - t0
+    steps, train_k = len(counts.steps), counts.total("train")
+    infer_k = counts.total("eval", "score")
+    score_detects = [n for st, n in counts.detects if st == "score"]
+    for h in history:
+        print(f"group-norm al loop: cycle {h['cycle']}: labeled {h['labeled']}, mAP "
+              f"{h['eval']['mAP']:.4f}; wall {h['time_s']:.2f} s (train "
+              f"{h['split_s']['train']:.2f}, eval {h['split_s']['eval']:.2f}, score "
+              f"{h['split_s']['score']:.2f}) on {card}")
+    peak = max(counts.score_peak) if counts.score_peak else 0
+    print(f"group-norm al loop: {steps} training steps, {len(counts.detects)} detects (scoring "
+          f"{score_detects}); launches by stage {json.dumps(counts.stages)}; peak device "
+          f"memory of the LS/C score call {peak / 2 ** 30:.2f} GiB; {wall:.2f} s on {card}")
+    if not (steps > 0 and train_k["roi_align_train_fwd"] == steps
+            and train_k["roi_align_bwd"] == steps and train_k["roi_align"] == 0
+            and train_k["roi_align_group_fwd"] == 0):
+        raise AssertionError(f"group-norm training did not launch K2 and K3 once per step: "
+                             f"{train_k}")
+    if not (infer_k["roi_align"] == len(counts.detects) and infer_k["roi_align_train_fwd"] == 0
+            and infer_k["roi_align_group_fwd"] == 0):
+        raise AssertionError(f"evaluation and scoring did not launch K1 once per detect: "
+                             f"{infer_k}")
+    if score_detects != [BATCH, 6 * BATCH] * n_score_batches:
+        raise AssertionError(f"LS/C did not detect base + 6 noisy variants per batch: "
+                             f"{score_detects}")
+    if not all(math.isfinite(v) for d in counts.losses for v in d.values()):
+        raise AssertionError("non-finite training losses under group norm")
+    if [h["labeled"] for h in history] != [cfg.init_num + cfg.budget_num] * 2:
+        raise AssertionError(f"LS/C did not grow the labeled set by the budget: {history}")
+    fresh, _ = driver.build_model(cfg, num_classes)
+    random_init_(fresh, cfg.seed)
+    init = dict(fresh.named_parameters())
+    trained = counts.trained[0]
+    unchanged = [n for n, p in trained.items() if torch.equal(p, init[n].detach())]
+    print(f"group-norm al loop: {len(trained)} parameters of conv1, bn1 and layer1, "
+          f"{len(unchanged)} unchanged by training")
+    if unchanged or not any(n.startswith("backbone.layer1") for n in trained):
+        raise AssertionError(f"conv1/layer1 did not train under group norm: {unchanged[:5]}")
+
+    # (c) LT/C and CALD 'FCDRGS' from cycle 0's checkpoint
+    model, _ = driver.build_model(cfg, num_classes)
+    model.to(device)
+    pool, _, _ = load_checkpoint(os.path.join(cfg.output_dir, "cycle_0"), model)
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    groups = create_aspect_ratio_groups(datasets[0].aspect_ratios(),
+                                        cfg.aspect_ratio_group_factor)
+    captured = {}
+
+    def capture(name, fn):
+        def run(*args, **kwargs):
+            captured[name] = fn(*args, **kwargs)
+            return captured[name]
+        return run
+
+    per_call = {"lsc": counts.total("score")["roi_align"] / (n_score_batches * (cfg.cycles - 1))}
+    for strategy, hook in (("ltc", "run_ltc"), ("cald", "score_pool")):
+        scfg = dataclasses.replace(cfg, strategy=strategy, augs="FCDRGS")
+        orig = getattr(driver, hook)
+        setattr(driver, hook, capture(strategy, orig))
+        counts = StageCounts(driver, kernels, device)
+        try:
+            with counts:
+                chosen = driver.score_and_select(scfg, model, datasets[0], pool, canvases, groups,
+                                                 cycle=0, device=device)
+        finally:
+            setattr(driver, hook, orig)
+        scores = np.asarray(captured[strategy][0] if strategy == "cald" else captured[strategy])
+        sizes = [n for _, n in counts.detects]
+        k1 = counts.launches["roi_align"]
+        per_call[strategy] = k1 / n_score_batches
+        print(f"{strategy} from cycle 0 (augs {scfg.augs}): selected {len(chosen)}, detects "
+              f"{sizes}, launches {counts.launches}, scores "
+              f"{np.array2string(scores, precision=4, max_line_width=200)}")
+        want_sizes = ([BATCH] if strategy == "ltc" else [BATCH, 6 * BATCH]) * n_score_batches
+        lo, hi = ((cfg.budget_num, cfg.budget_num) if strategy == "ltc"
+                  else (cfg.budget_num, int(cfg.mr * cfg.budget_num)))
+        if not (sizes == want_sizes and k1 == len(sizes) and sum(counts.launches.values()) == k1):
+            raise AssertionError(f"{strategy}: not one K1 per detect ({sizes}, {counts.launches})")
+        if not (lo <= len(chosen) <= hi and len(set(chosen.tolist())) == len(chosen)
+                and set(chosen.tolist()) <= set(pool.unlabeled.tolist())):
+            raise AssertionError(f"{strategy}: the selection is not the budget: {chosen}")
+        if not (np.isfinite(scores).all() and scores.min() >= 0.0 and scores.max() <= 1.0):
+            raise AssertionError(f"{strategy}: scores not finite or outside [0, 1]")
+
+    # warm score calls and training steps on one batch
+    batch = next(iter(driver._loaders(cfg, datasets[0], range(BATCH), batch_size=BATCH,
+                                      train=False, canvases=canvases, group_ids=groups)))
+    images = torch.from_numpy(batch.images).to(device)
+    valid_hw = torch.from_numpy(batch.valid_hw).to(device)
+    lsc_fn, ltc_fn = make_lsc_score_fn(model), make_ltc_score_fn(model)
+    draw = generator_draw(torch.Generator(device=device).manual_seed(SEED + 7))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lsc_ms = _warm_ms(lambda: lsc_fn(images, valid_hw, draw), 3)
+    lsc_peak = torch.cuda.max_memory_allocated()
+    ltc_ms = _warm_ms(lambda: ltc_fn(images, valid_hw), 5)
+    tb = next(iter(driver._loaders(cfg, datasets[0], range(TRAIN_BATCH), batch_size=TRAIN_BATCH,
+                                   train=True, canvases=canvases, group_ids=groups, seed=SEED)))
+    tbatch = [torch.from_numpy(np.asarray(a)).to(device) for a in (
+        tb.images, tb.valid_hw, tb.boxes, tb.labels, tb.box_valid)]
+    step = make_train_step(model, make_sgd(model, FIXED_LR))
+    gumbel = generator_gumbel(torch.Generator(device=device).manual_seed(SEED + 8))
+    step_ms = _warm_ms(lambda: step(*tbatch, gumbel), 5)
+    print(f"group-norm time: LS/C score call of B={BATCH} ({6 * BATCH} noisy images) "
+          f"{lsc_ms:.1f} ms/call, {BATCH / lsc_ms * 1e3:.2f} images/s, peak device memory "
+          f"{lsc_peak / 2 ** 30:.2f} GiB; LT/C score call {ltc_ms:.1f} ms/call, "
+          f"{BATCH / ltc_ms * 1e3:.2f} images/s; training step of B={TRAIN_BATCH} "
+          f"{step_ms:.1f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.2f} images/s on {card}")
+    del model, fresh
+    torch.cuda.empty_cache()
+    return {"history": history, "steps": steps, "train_launches": train_k,
+            "score_peak_bytes": peak, "launches_per_score_call": per_call,
+            "lsc_ms": lsc_ms, "lsc_peak_bytes": lsc_peak, "ltc_ms": ltc_ms, "step_ms": step_ms,
+            "wall_s": wall}
+
+
+LEARN_EPOCHS = 30                # tests/test_learnability.py's configuration
+
+
+def learnability_phase(device, kernels: dict, card: str, workdir: str) -> dict:
+    """Phase 12(d): the JAX package's learnability configuration on the card
+    (tiny, group norms, 32 learnable 96x128 images, 30 epochs, lr 0.005,
+    steps 20/26, random, 1 cycle): per-class AP50 > 0.7 for aeroplane,
+    bicycle and bird, and their mean > 0.85."""
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.cli.config import ALConfig
+    from cald_tpu_torch.data.synthetic import make_learnable_voc
+    from cald_tpu_torch.data.voc import get_voc2007
+
+    root = make_learnable_voc(os.path.join(workdir, "learn"), 32, image_format="npy")
+    ds = get_voc2007(root, "trainval")
+    cfg = ALConfig(dataset="voc2007", data_path=root, model="faster", strategy="random",
+                   tiny=True, norm="group", cycles=1, epochs=LEARN_EPOCHS, batch_size=4,
+                   init_num=32, budget_num=1, score_batch_size=4, workers=4, min_size=96,
+                   max_size=128, max_boxes=8, print_freq=100000, lr=0.005, lr_steps=(20, 26),
+                   aspect_ratio_group_factor=0, device=device.type).resolve()
+    counts = StageCounts(driver, kernels, device)
+    with counts:
+        t0 = time.perf_counter()
+        history = driver.al_loop(cfg, datasets=(ds, ds))
+        wall = time.perf_counter() - t0
+    steps, train_k = len(counts.steps), counts.total("train")
+    infer_k = counts.total("eval", "score")
+    per_class = history[0]["eval"]["per_class_ap50"]
+    present = {k: per_class.get(k, 0.0) for k in ("aeroplane", "bicycle", "bird")}
+    mean = float(np.mean(list(present.values())))
+    print(f"learnability: tiny group-norm detector, {LEARN_EPOCHS} epochs, {steps} steps: "
+          f"AP50 {json.dumps({k: round(v, 4) for k, v in present.items()})}, mean {mean:.4f} "
+          f"(limits 0.7 each, 0.85 mean); launches train {train_k}, eval {infer_k}; wall "
+          f"{wall:.2f} s on {card}")
+    if not (train_k["roi_align_train_fwd"] == steps == train_k["roi_align_bwd"]
+            and infer_k["roi_align"] == len(counts.detects)):
+        raise AssertionError("the learnability run did not go through K2/K3 and K1")
+    if not (all(v > 0.7 for v in present.values()) and mean > 0.85):
+        raise AssertionError(f"the tiny detector did not learn: {present}")
+    return {"ap50": present, "mean": mean, "steps": steps, "wall_s": wall}
 
 
 def main() -> int:
@@ -1291,6 +1598,16 @@ def main() -> int:
         al = al_loop_phase(device, all_kernels, card, workdir)
     group_kernel["launches"] = al["launches"]["roi_align_group_fwd"]
     group_kernel["launches_per_step"] = al["launches"]["roi_align_group_fwd"] / al["steps"]
+
+    t12 = time.perf_counter()
+    group_pyramid_check(device)
+    with tempfile.TemporaryDirectory() as workdir:
+        group = group_al_phase(device, all_kernels, card, workdir)
+        learn = learnability_phase(device, all_kernels, card, workdir)
+    print(f"phase 12: {time.perf_counter() - t12:.2f} s on {card}")
+    kernel["launches_per_score_call"] = group["launches_per_score_call"]
+    for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
+        entry["launches_group_norm_per_step"] = group["train_launches"][name] / group["steps"]
 
     print(json.dumps({"kernels": [kernel, train_kernels[0], train_kernels[1], group_kernel,
                                   *bneck_kernels]}))

@@ -3,8 +3,8 @@
 piece on the CPU: configuration and flags, loader batches, pool bookkeeping
 and random picks, VOC evaluation, evaluation of the tiny detector with
 bridged weights; then the port's own ``al_loop`` on the tiny model
-(``cald``, ``random``, ``--resume``) and ``cli.main``'s refusal to run on
-the CPU unasked."""
+(``cald``, ``random``, ``--resume``; group norm with 'FCDRGS', ``ltc``,
+``lsc``) and ``cli.main``'s refusal to run on the CPU unasked."""
 
 import dataclasses
 import hashlib
@@ -225,7 +225,7 @@ def test_evaluate_matches_jax(voc, pil_decode):
                        print_fn=quiet)
     for k in ("mAP", "AP50", "AP75", "recall"):
         assert abs(m_got[k] - m_want[k]) < 1e-6, k
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         evaluate(tmodel, [], ds, kind="coco", device="cpu")
 
 
@@ -288,28 +288,59 @@ def test_al_loop_random_matches_jax_picks(voc):
 
 
 def test_unported_options_raise(voc):
-    for kw in ({"strategy": "vaal"}, {"norm": "group"}, {"model": "retina"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    for kw, item in (({"strategy": "vaal"}, 7), ({"model": "retina"}, 8),
+                     ({"score_shrink_slice": True}, 13)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
             driver.al_loop(_cfg(voc["npy"], **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         driver.build_datasets(_cfg(voc["npy"], dataset="coco").resolve())
 
 
-@pytest.mark.parametrize("augs", ["FCDRGS", "FCDRG", "S"])
-def test_unported_aug_codes_raise_before_any_work(augs, monkeypatch):
-    """--augs with 'G' or 'S' is refused by _check_supported, so al_loop
-    raises before it reads a dataset; 'FCDR' passes."""
-    cfg = _cfg("unused", augs=augs).resolve()
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        driver._check_supported(cfg)
-
+def _no_work(monkeypatch):
     def no_work(*_):
         raise AssertionError("al_loop started work")
 
     monkeypatch.setattr(driver, "build_datasets", no_work)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+
+
+def test_pretrained_backbone_with_group_norm_raises_before_any_work(monkeypatch):
+    """A group-norm backbone has no FrozenBatchNorm statistics to import:
+    ValueError before any dataset is read (the JAX package fails later,
+    in its importer)."""
+    _no_work(monkeypatch)
+    cfg = _cfg("unused", norm="group", pretrained_backbone="backbone.pt")
+    with pytest.raises(ValueError, match="--norm group"):
         driver.al_loop(cfg)
-    driver._check_supported(_cfg("unused", augs="FCDR").resolve())
+    driver._check_supported(_cfg("unused", norm="group").resolve())
+    driver._check_supported(_cfg("unused", augs="FCDRGS").resolve())
+
+
+@pytest.mark.parametrize("kw", [dict(norm="group", strategy="cald", augs="FCDRGS"),
+                                dict(strategy="ltc"), dict(strategy="lsc")],
+                         ids=["group-cald-FCDRGS", "ltc", "lsc"])
+def test_al_loop_new_options_grow_by_the_budget(voc, kw):
+    """Two cycles of the tiny model with each option this slice adds:
+    labeled 4 -> 7 (budget 3) and a finite mAP in each cycle."""
+    history = driver.al_loop(_cfg(voc["npy"], **kw))
+    assert [h["labeled"] for h in history] == [7, 7]
+    assert all(np.isfinite(h["eval"]["mAP"]) for h in history)
+
+
+@pytest.mark.parametrize("strategy", ["ltc", "lsc"])
+def test_baseline_selection_is_the_stable_ascending_argsort(voc, monkeypatch, strategy):
+    """score_and_select takes the budget lowest scores, ties in pool order
+    (JAX's ``np.argsort(s, kind="stable")[:budget]``)."""
+    cfg = _cfg(voc["npy"], strategy=strategy, budget_num=4).resolve()
+    pool = ALPoolState.initial(12, 4, cfg.seed)
+    scores = np.array([0.5, 0.25, 0.5, 0.25, 0.0, 0.25, 0.5, 0.0])
+    name = "run_ltc" if strategy == "ltc" else "lsc_scores"
+    monkeypatch.setattr(driver, name, lambda *a, **k: scores)
+    ds = get_voc2007(voc["npy"], "trainval")
+    chosen = driver.score_and_select(
+        cfg, None, ds, pool, batching.default_canvases(96, 128),
+        batching.create_aspect_ratio_groups(ds.aspect_ratios(), 0), cycle=0,
+        device=torch.device("cpu"))
+    np.testing.assert_array_equal(chosen, pool.unlabeled[[4, 7, 1, 3]])
 
 
 def test_stream_generators_are_seeded():

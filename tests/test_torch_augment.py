@@ -1,6 +1,7 @@
 """The port's CALD augmentations against the JAX package's, on the CPU in
 float32: flip, resize, rotation (the two-pass shear) and cutout with the JAX
-draws injected, then the whole augmented batch."""
+draws injected, then the whole augmented batch of 'FCDR' (the photometric
+augs are in tests/test_torch_photometric.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -102,18 +103,9 @@ def test_build_aug_batch_fcdr(batch):
     _check(got, want)
 
 
-@pytest.mark.parametrize("augs", ["FCDRGS", "GS", "G", "FXS"])
-def test_expand_aug_string_refuses_unported_codes(augs):
-    """The reference's photometric codes are refused, each one named, where
-    dropping them would score with fewer augs than JAX."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 1") as err:
-        suite.expand_aug_string(augs)
-    for ch in "GS":
-        assert (repr(ch) in str(err.value)) == (ch in augs)
-
-
-@pytest.mark.parametrize("augs", ["FCDR", "RDCF", "FC", "FX", "", "xyzD"])
+@pytest.mark.parametrize("augs", ["FCDR", "RDCF", "FC", "FX", "", "xyzD",
+                                  "FCDRGS", "GS", "G", "FXS"])
 def test_expand_aug_string_matches_jax(augs):
-    """Ported codes give JAX's list in JAX's order; a code unknown to both
-    is ignored by both."""
+    """Every code gives JAX's list in JAX's order, the photometric 'G' and
+    'S' included; a code unknown to both is ignored by both."""
     assert suite.expand_aug_string(augs) == jexpand_aug_string(augs)

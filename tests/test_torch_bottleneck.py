@@ -24,7 +24,7 @@ from cald_tpu_torch.models.resnet import Bottleneck, ResNetBackbone
 from cald_tpu_torch.ops import bottleneck as plain
 from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
 from tests.test_torch_detect import FIELDS_ATOL
-from tests.torch_helpers import TINY, tiny_images, tiny_models, to_np
+from tests.torch_helpers import TINY, scale_pyramid, tiny_images, tiny_models, to_np
 
 # the bound of tests/test_pallas_interpret.py's K6 parity test
 ATOL, RTOL = 5e-5, 1e-4
@@ -205,20 +205,6 @@ def _jax_suffix_backbone(cfg):
     return (JaxBackbone(blocks, width, norm=cfg.norm, dtype=None), ("c2", "c3", "c4", "c5"))
 
 
-def _scale_pyramid(variables, factor):
-    """The FPN's output convs scaled by ``factor``. With 12 bottlenecks the
-    pyramid reaches about 100, eight times the tiny backbone's, and the
-    amplified heads then turn f32 rounding alone (unfused, 2e-6 of the
-    pyramid) into 2e-2 px of box between the packages; scaled by 1/8 the
-    pyramid is the tiny model's size again."""
-    params = jax.tree.map(np.asarray, variables["params"])
-    for name, conv in params["fpn"].items():
-        if name.startswith("output"):
-            conv["kernel"] = conv["kernel"] * np.float32(factor)
-            conv["bias"] = conv["bias"] * np.float32(factor)
-    return {**variables, "params": params}
-
-
 @pytest.fixture(scope="module")
 def detections():
     """detect of the tiny detector with the (2, 3, 2, 2) backbone in both
@@ -230,7 +216,11 @@ def detections():
         mp.setitem(faster_rcnn.BACKBONES, "tiny", SUFFIX_BACKBONE)
         _interpret(mp)
         jmodel, variables, tmodel = tiny_models()
-        variables = _scale_pyramid(variables, 1 / 8)
+        # with 12 bottlenecks the pyramid reaches about 100, eight times the
+        # tiny backbone's, and the amplified heads then turn f32 rounding
+        # alone (unfused, 2e-6 of the pyramid) into 2e-2 px of box between
+        # the packages; scaled by 1/8 it is the tiny model's size again
+        variables = scale_pyramid(variables, 1 / 8)
         tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
         for mode in MODES:
             mp.setattr(JaxBackbone, "_fuse_gate", lambda self, mode=mode: mode)

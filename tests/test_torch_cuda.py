@@ -1,7 +1,8 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
 RoIAlign (K1 inference forward, K2 training forward, K3 training backward,
 K4 grouped training forward) and the fused bottlenecks (K5 one block, K6 a
-stage's stride-1 suffix).
+stage's stride-1 suffix); then the PyTorch-op modules of ``--norm group``
+and the photometric augs on the card against the CPU on the same inputs.
 
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with an H100 and ``nvcc`` run them with ``python -m pytest tests/test_torch_cuda.py``.
@@ -567,3 +568,83 @@ def test_bottleneck_launch_counts_and_bad_input(bneck):
     with pytest.raises(ValueError):
         block_k(x, _folded_blocks(32, 8, 1)[0])         # weights of another width
     assert (block_k.launches, stage_k.launches) == (n5, n6)
+
+
+# --------------------------------------------------------------------------
+# GroupNorm and the photometric augs: PyTorch ops, card against CPU
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [64, 72, 256])
+def test_group_norm_card_matches_cpu(card, width, dtype):
+    """Forward (and, in f32, the input and parameter gradients) of
+    GroupNorm on channels-last NCHW input: f32 atol 1e-5 of unit-scale
+    outputs; bf16 within one bf16 step (rtol 2^-7) of the CPU's bf16."""
+    from cald_tpu_torch.models.layers import GroupNorm, group_count
+
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.normal(0.5, 1.5, (2, width, 20, 24)).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last).to(dtype)
+    norm = GroupNorm(width, group_count(width))
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(rng.uniform(0.7, 1.3, width).astype(np.float32)))
+        norm.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, width).astype(np.float32)))
+    norm_gpu = GroupNorm(width, group_count(width)).to(card)
+    norm_gpu.load_state_dict(norm.state_dict())
+    xc, xg = x.clone().requires_grad_(), x.to(card).requires_grad_()
+    want, got = norm(xc), norm_gpu(xg)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+        g = torch.from_numpy(rng.normal(0, 1, want.shape).astype(np.float32))
+        want.backward(g)
+        got.backward(g.to(card))
+        torch.testing.assert_close(xg.grad.cpu(), xc.grad, atol=1e-4, rtol=1e-4)
+        for name in ("weight", "bias"):
+            torch.testing.assert_close(getattr(norm_gpu, name).grad.cpu(),
+                                       getattr(norm, name).grad, atol=1e-3, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float().cpu(), want.float(), atol=1e-6, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("name", ["ga", "ga:48", "sp", "sp:0.3", "color_adjust",
+                                  "color_adjust:5", "color_swap"])
+def test_photometric_card_matches_cpu(card, name):
+    """build_aug_batch of each photometric aug with the same injected draws
+    on the card and on the CPU (a padded image included): pixels within
+    1e-3 (color_adjust 5e-2 at factor 5: its contrast mean is a float32 sum
+    reduced in another order on each device), boxes and sizes exact."""
+    from cald_tpu_torch.augment import suite
+
+    rng = np.random.default_rng(3)
+    images = rng.uniform(10, 245, (2, 96, 128, 3)).astype(np.float32)
+    images[1, 70:] = 0.0
+    images[1, :, 100:] = 0.0
+    hw = np.array([[96, 128], [70, 100]], np.int32)
+    boxes = np.tile(np.array([[10.0, 12.0, 50.0, 60.0]], np.float32), (2, 3, 1))
+    valid = np.ones((2, 3), bool)
+    draws = {}
+
+    def draw(i, shape, kind="uniform"):
+        if (i, shape, kind) not in draws:
+            g = torch.Generator().manual_seed(7 + i)
+            fn = torch.randn if kind == "normal" else torch.rand
+            draws[(i, shape, kind)] = fn(shape, generator=g)
+        return draws[(i, shape, kind)]
+
+    args = [torch.from_numpy(a) for a in (images, boxes, valid, hw)]
+    want = suite.build_aug_batch(*args, [name], draw)
+    got = suite.build_aug_batch(*(a.to(card) for a in args), [name], draw)
+    atol = 5e-2 if name == "color_adjust:5" else 1e-3
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=atol, rtol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], atol=0, rtol=0)
+    torch.testing.assert_close(got[2].cpu(), want[2], atol=0, rtol=0)

@@ -45,8 +45,9 @@ def tiny_images(seed: int = 7):
 def _amplify(params, frozen, rng):
     """Random heads are near zero (std 0.01): flat softmax rows, identical
     boxes. Scale them as tests/test_golden_parity.py does so the filter, NMS
-    and top-k have work to do; give the frozen norms non-trivial statistics
-    so the bridge's norm mapping is exercised."""
+    and top-k have work to do; give the norms (frozen statistics, or the
+    GroupNorms' scale and bias) non-trivial values so the bridge's norm
+    mapping is exercised."""
     p = copy.deepcopy(jax.tree.map(np.asarray, params))
     for name, f in (("objectness", 60.0), ("deltas", 8.0), ("conv", 3.0)):
         p["rpn_head"][name]["kernel"] = p["rpn_head"][name]["kernel"] * f
@@ -62,23 +63,40 @@ def _amplify(params, frozen, rng):
             return rng.uniform(0.7, 1.4, shape).astype(np.float32)
         return rng.normal(0.0, 0.05, shape).astype(np.float32)     # bias, mean
 
+    def group_norm(path):
+        return any(str(getattr(k, "key", "")).startswith("GroupNorm_") for k in path)
+
+    p = jax.tree_util.tree_map_with_path(
+        lambda path, x: perturb(path, x) if group_norm(path) else x, p)
     return p, jax.tree_util.tree_map_with_path(perturb, frozen)
 
 
-def tiny_models(seed: int = 0, **overrides):
+def tiny_models(seed: int = 0, norm: str = "frozen", **overrides):
     """(jax_model, variables, torch_model) sharing one seeded set of weights;
-    ``overrides`` change both configurations alike."""
+    ``norm`` and ``overrides`` change both configurations alike."""
     cfg = {**TINY, **overrides}
-    jmodel = JaxFasterRCNN(JaxConfig(norm="frozen", **cfg))
+    jmodel = JaxFasterRCNN(JaxConfig(norm=norm, **cfg))
     images, valid_hw = tiny_images()
     variables = jax.jit(jmodel.init)(jax.random.key(seed), jnp.asarray(images),
                                      jnp.asarray(valid_hw))
-    params, frozen = _amplify(variables["params"], variables["frozen"],
+    params, frozen = _amplify(variables["params"], variables.get("frozen", {}),
                               np.random.default_rng(seed))
-    variables = {"params": params, "frozen": frozen}
-    tmodel = FasterRCNN(FasterRCNNConfig(**cfg))
+    variables = {"params": params, **({"frozen": frozen} if frozen else {})}
+    tmodel = FasterRCNN(FasterRCNNConfig(norm=norm, **cfg))
     tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
     return jmodel, variables, tmodel.eval()
+
+
+def scale_pyramid(variables, factor):
+    """The variables with the FPN's output convs scaled by ``factor``: a
+    smaller pyramid, so that the amplified heads do not turn f32 rounding
+    differences of the backbone into box differences."""
+    params = jax.tree.map(np.asarray, variables["params"])
+    for name, conv in params["fpn"].items():
+        if name.startswith("output"):
+            conv["kernel"] = conv["kernel"] * np.float32(factor)
+            conv["bias"] = conv["bias"] * np.float32(factor)
+    return {**variables, "params": params}
 
 
 def to_np(t: torch.Tensor) -> np.ndarray:
