@@ -1,13 +1,19 @@
 """The active-learning cycle driver (port of ``cald_tpu/cli/driver.py`` for
-Faster R-CNN with the ``cald``, ``random``, ``ltc`` and ``lsc`` strategies,
-frozen or group norms).
+Faster R-CNN with every strategy: ``cald``, ``random``, ``ltc``, ``lsc``,
+``ssm``, ``ll4al`` and ``vaal``; frozen or group norms).
 
 Cycle structure (the reference's):
     for cycle: train a fresh detector on the labeled set -> evaluate ->
                score the pool -> select the budget -> labeled += selection
 
+LL4AL trains the detector jointly with its LossNet; VAAL follows each
+task epoch with an epoch of VAE + discriminator steps.
+
 The pool split, cycle and seeds are checkpointed with the model
-(``--output-dir``), so any cycle boundary is resumable (``--resume``).
+(``--output-dir``), so any cycle boundary is resumable (``--resume``), with
+the strategies' carry-state: SSM's adapted gamma and clslambda in ``meta``,
+the trained LossNet (LL4AL) and VAE + discriminator (VAAL) parameters in
+``extra``. A checkpoint without ``extra`` retrains the cycle.
 
 Random streams. The NumPy streams are those of the JAX package's ``al_loop``,
 so batches, flips, pool subsets and random picks equal its own:
@@ -15,8 +21,8 @@ so batches, flips, pool subsets and random picks equal its own:
   * the training loader of (cycle, epoch): ``grouped_batch_indices`` shuffled
     by ``default_rng(seed + cycle * 1000 + epoch)``, the flips of batch n by
     ``default_rng((seed + cycle * 1000 + epoch, n))``;
-  * the scoring subset and the random picks of cycle k:
-    ``default_rng(seed + 100 + k)``.
+  * the scoring subset, the random picks and SSM's cross-validation draws of
+    cycle k: ``default_rng(seed + 100 + k)``.
 JAX's key streams become ``torch.Generator``s on the run's device, seeded from
 the same numbers (their draws are the port's own):
   * the samplers' Gumbel noise of epoch e, ``fold_in(key(seed), e)`` in JAX:
@@ -24,20 +30,28 @@ the same numbers (their draws are the port's own):
   * the augmentation draws (CALD) and noise normals (LS/C) of cycle k's
     scoring, ``fold_in(key(seed + 17), k)`` in JAX:
     ``stream_generator(device, seed + 17, k)``;
+  * the samplers' noise of LL4AL's joint step bi of (cycle, epoch):
+    ``stream_generator(device, seed + 3, (cycle * 1000 + epoch) * 100000 + bi)``;
+  * VAAL's reparameterisation normals of (cycle, epoch), drawn step after
+    step: ``stream_generator(device, seed + 31, cycle * 1000 + epoch)``;
 where ``stream_generator(device, a, b)`` is seeded with the first 63 bits of
 ``np.random.SeedSequence([a, b])``'s state. The model init is
 ``models/init.py::random_init_`` with ``seed`` (the JAX package's
 ``create_train_state(..., seed=cfg.seed)``), then the pretrained backbone
-where one is given.
+where one is given; LossNet is initialised from ``seed + 1``, and cycle k's
+VAE and discriminator from ``seed + k`` and ``seed + k + 1`` (Flax's
+initial distributions, ``models/init.py::lecun_init_``).
 
-Not ported yet (they raise ``NotImplementedError``): the strategies ssm,
-ll4al and vaal (ROADMAP queue 1 item 7), the models other than Faster R-CNN
-(item 8), COCO (item 9), the multi-process branches (item 11) and
-``--score-shrink-slice`` (item 13).
+Not ported yet (they raise ``NotImplementedError``): the models other than
+Faster R-CNN (ROADMAP queue 1 item 8), COCO (item 9), the multi-process
+branches (item 11) and ``--score-shrink-slice`` (item 13).
 
-Known difference: ``--pretrained-backbone`` with ``--norm group`` raises
+Known differences: ``--pretrained-backbone`` with ``--norm group`` raises
 ``ValueError`` before any work. The JAX package fails too, later and with
-another message: its importer fills FrozenBatchNorm leaves only.
+another message: its importer fills FrozenBatchNorm leaves only. ``--skip``
+with ``ll4al`` raises ``ValueError`` when it would load the first-cycle
+checkpoint, which holds no LossNet; the JAX package fails at the cycle's
+scoring with a ``KeyError``.
 """
 
 from __future__ import annotations
@@ -45,38 +59,48 @@ from __future__ import annotations
 import copy
 import dataclasses
 import hashlib
+import itertools
 import os
 import time
 
 import numpy as np
 import torch
 
-from cald_tpu_torch.augment.suite import expand_aug_string
+from cald_tpu_torch.augment.suite import expand_aug_string, generator_draw
 from cald_tpu_torch.cli.config import ALConfig
 from cald_tpu_torch.convert.torchvision_import import load_backbone_
 from cald_tpu_torch.data.batching import (
-    create_aspect_ratio_groups, default_canvases, grouped_batch_indices,
+    create_aspect_ratio_groups, default_canvases, grouped_batch_indices, make_padded_batch,
 )
-from cald_tpu_torch.data.loader import BatchLoader
+from cald_tpu_torch.data.loader import BatchLoader, decode_image
 from cald_tpu_torch.data.pool import ALPoolState
+from cald_tpu_torch.data.records import ImageRecord
 from cald_tpu_torch.data.transforms import random_horizontal_flip
 from cald_tpu_torch.data.voc import get_voc2007, get_voc2012
-from cald_tpu_torch.engine.checkpoint import load_checkpoint, peek_checkpoint, save_checkpoint
+from cald_tpu_torch.engine.checkpoint import (
+    load_checkpoint, load_extra, peek_checkpoint, save_checkpoint,
+)
 from cald_tpu_torch.engine.evaluate import evaluate
 from cald_tpu_torch.engine.optim import RESNET_FROZEN_L3, make_sgd
 from cald_tpu_torch.engine.schedules import lr_scheduler, multistep_with_warmup
 from cald_tpu_torch.engine.train import make_train_step, train_one_epoch
 from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
-from cald_tpu_torch.models.init import random_init_
+from cald_tpu_torch.models.init import lecun_init_, random_init_
+from cald_tpu_torch.models.lossnet import LossNet
 from cald_tpu_torch.models.matcher import generator_gumbel
 from cald_tpu_torch.strategies.cald import (
     CALDConfig, cald_select, labeled_class_counts, make_cald_score_fn, score_pool,
 )
+from cald_tpu_torch.strategies.ll4al import (
+    ll_scores, ll_select, make_ll_score_fn, make_ll_train_step,
+)
 from cald_tpu_torch.strategies.lsc import lsc_scores, make_lsc_score_fn
 from cald_tpu_torch.strategies.ltc import make_ltc_score_fn, run_ltc
 from cald_tpu_torch.strategies.random_strategy import random_select
+from cald_tpu_torch.strategies.ssm import CrossValidator, SSMConfig, ssm_select
+from cald_tpu_torch.strategies.vaal import VAALTrainer, vaal_select
 
-STRATEGIES = ("cald", "random", "ltc", "lsc")
+STRATEGIES = ("cald", "random", "ltc", "lsc", "ssm", "ll4al", "vaal")
 
 
 def stream_generator(device: torch.device, a: int, b: int) -> torch.Generator:
@@ -91,8 +115,7 @@ def _check_supported(cfg: ALConfig):
     ``--pretrained-backbone`` under group norm, which has no weights to
     import into."""
     if cfg.strategy not in STRATEGIES:
-        raise NotImplementedError(f"strategy {cfg.strategy!r} is not ported yet "
-                                  "(ROADMAP queue 1 item 7)")
+        raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.model != "faster":
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet "
                                   "(ROADMAP queue 1 item 8)")
@@ -153,6 +176,25 @@ def _apply_pretrained_backbone(model: FasterRCNN, cfg: ALConfig):
         load_backbone_(model, sd)
 
 
+def _steps_per_epoch(cfg: ALConfig, dataset, pool: ALPoolState, canvases, group_ids, *,
+                     cycle: int) -> int:
+    """Batches of the cycle's training loader (at least 1): the schedules'
+    epoch length."""
+    return max(len(_loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
+                            canvases=canvases, group_ids=group_ids, seed=cfg.seed + cycle)), 1)
+
+
+def _sgd(cfg: ALConfig, module, base_lr: float, steps_per_epoch: int, frozen_prefixes=()):
+    """(optimizer, scheduler): the reference's SGD on the warmup + multistep
+    schedule from ``base_lr``."""
+    optimizer = make_sgd(module, base_lr, momentum=cfg.momentum,
+                         weight_decay=cfg.weight_decay, frozen_prefixes=frozen_prefixes)
+    scheduler = lr_scheduler(optimizer, multistep_with_warmup(
+        base_lr, steps_per_epoch, milestones=cfg.lr_steps, gamma=cfg.lr_gamma,
+        warmup_iters=cfg.warmup_iters))
+    return optimizer, scheduler
+
+
 def _fresh_state(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, canvases,
                  group_ids, *, cycle: int, device):
     """A fresh model, optimizer and schedule for a cycle (the reference
@@ -161,15 +203,25 @@ def _fresh_state(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, ca
     random_init_(model, cfg.seed)
     _apply_pretrained_backbone(model, cfg)
     model.to(device)
-    loader0 = _loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
-                       canvases=canvases, group_ids=group_ids, seed=cfg.seed + cycle)
-    steps_per_epoch = max(len(loader0), 1)
-    optimizer = make_sgd(model, cfg.lr, momentum=cfg.momentum,
-                         weight_decay=cfg.weight_decay, frozen_prefixes=frozen_prefixes)
-    scheduler = lr_scheduler(optimizer, multistep_with_warmup(
-        cfg.lr, steps_per_epoch, milestones=cfg.lr_steps, gamma=cfg.lr_gamma,
-        warmup_iters=cfg.warmup_iters))
-    return model, optimizer, scheduler
+    steps = _steps_per_epoch(cfg, dataset, pool, canvases, group_ids, cycle=cycle)
+    return (model, *_sgd(cfg, model, cfg.lr, steps, frozen_prefixes))
+
+
+def _train_loader(cfg: ALConfig, dataset, pool: ALPoolState, canvases, group_ids, *,
+                  cycle: int, epoch: int) -> BatchLoader:
+    return _loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
+                    canvases=canvases, group_ids=group_ids, seed=cfg.seed + cycle * 1000 + epoch)
+
+
+def _task_epoch(cfg: ALConfig, step_fn, loader, *, cycle: int, epoch: int, device):
+    draw = generator_gumbel(stream_generator(device, cfg.seed, epoch))
+    train_one_epoch(step_fn, loader, draw, device=device, epoch=epoch, cycle=cycle,
+                    print_freq=cfg.print_freq)
+
+
+def _tensors(batch, device) -> list[torch.Tensor]:
+    return [torch.from_numpy(a).to(device) for a in (
+        batch.images, batch.valid_hw, batch.boxes, batch.labels, batch.box_valid)]
 
 
 def train_cycle(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, canvases,
@@ -179,13 +231,142 @@ def train_cycle(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, can
                                                group_ids, cycle=cycle, device=device)
     step_fn = make_train_step(model, optimizer, scheduler)
     for epoch in range(cfg.epochs):
-        loader = _loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
-                          canvases=canvases, group_ids=group_ids,
-                          seed=cfg.seed + cycle * 1000 + epoch)
-        draw = generator_gumbel(stream_generator(device, cfg.seed, epoch))
-        train_one_epoch(step_fn, loader, draw, device=device, epoch=epoch, cycle=cycle,
-                        print_freq=cfg.print_freq)
+        loader = _train_loader(cfg, dataset, pool, canvases, group_ids, cycle=cycle, epoch=epoch)
+        _task_epoch(cfg, step_fn, loader, cycle=cycle, epoch=epoch, device=device)
     return model, optimizer, scheduler
+
+
+def _new_lossnet(model: FasterRCNN, cfg: ALConfig, device) -> LossNet:
+    lossnet = LossNet(num_levels=4, in_channels=model.cfg.fpn_channels)
+    lecun_init_(lossnet, cfg.seed + 1)
+    return lossnet.to(device)
+
+
+def _train_cycle_ll4al(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, canvases,
+                       group_ids, *, cycle: int, device):
+    """Joint detector + LossNet training (ll_train.py:55-133): LossNet has
+    its own SGD on the task's schedule (nothing frozen); after
+    ``task_epochs`` epochs its input features are detached. Returns (model,
+    optimizer, scheduler, lossnet)."""
+    model, optimizer, scheduler = _fresh_state(cfg, num_classes, dataset, pool, canvases,
+                                               group_ids, cycle=cycle, device=device)
+    lossnet = _new_lossnet(model, cfg, device)
+    steps = _steps_per_epoch(cfg, dataset, pool, canvases, group_ids, cycle=cycle)
+    ll_optimizer, ll_scheduler = _sgd(cfg, lossnet, cfg.lr, steps)
+    step = make_ll_train_step(model, lossnet, optimizer, ll_optimizer, scheduler, ll_scheduler,
+                              ll_weight=cfg.ll_weight)
+    for epoch in range(cfg.epochs):
+        loader = _train_loader(cfg, dataset, pool, canvases, group_ids, cycle=cycle, epoch=epoch)
+        metrics = None
+        for bi, batch in enumerate(loader):
+            draw = generator_gumbel(stream_generator(
+                device, cfg.seed + 3, (cycle * 1000 + epoch) * 100000 + bi))
+            metrics = step(*_tensors(batch, device), draw,
+                           detach_features=epoch >= cfg.task_epochs)
+        last = "empty loader" if metrics is None else f"loss {float(metrics['loss']):.4f}"
+        print(f"ll4al cycle {cycle} epoch {epoch}: {last}")
+    return model, optimizer, scheduler, lossnet
+
+
+def _make_vaal_trainer(cfg: ALConfig, steps_per_epoch: int, cycle: int, device) -> VAALTrainer:
+    """A fresh VAE + discriminator for a cycle with the reference's
+    optimizers: SGD at lr/10 for the VAE and at lr for the discriminator,
+    both on the task's warmup + multistep schedule (vaal_train.py:221-238)."""
+    def optimizers(vae, disc):
+        return (*_sgd(cfg, vae, cfg.lr / 10, steps_per_epoch),
+                *_sgd(cfg, disc, cfg.lr, steps_per_epoch))
+
+    return VAALTrainer(optimizers, seed=cfg.seed + cycle, device=device)
+
+
+def _vaal_adversary_epoch(cfg: ALConfig, trainer: VAALTrainer, dataset, pool: ALPoolState,
+                          canvases, group_ids, *, cycle: int, epoch: int, device):
+    """One epoch of VAE + discriminator steps: one per labeled batch, each
+    with the next unlabeled batch, the unlabeled loader cycled when it is
+    shorter (vaal_train.py:99-148)."""
+    seed = cfg.seed + cycle * 1000 + epoch
+    lab_loader = _loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
+                          canvases=canvases, group_ids=group_ids, seed=seed)
+    unlab_loader = _loaders(cfg, dataset, pool.unlabeled, batch_size=cfg.batch_size,
+                            train=True, canvases=canvases, group_ids=group_ids, seed=seed + 1)
+    if len(unlab_loader) == 0:
+        return
+    draw = generator_draw(stream_generator(device, cfg.seed + 31, cycle * 1000 + epoch))
+    vloss = dloss = float("nan")
+    unlab_iter = itertools.cycle(unlab_loader)
+    for lb in lab_loader:
+        ub = next(unlab_iter)
+        vloss, dloss = trainer.train_step(torch.from_numpy(lb.images).to(device),
+                                          torch.from_numpy(ub.images).to(device), draw)
+    print(f"vaal cycle {cycle} epoch {epoch}: vae_loss {float(vloss):.2f} "
+          f"dis_loss {float(dloss):.4f}")
+
+
+def _train_cycle_vaal(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, canvases,
+                      group_ids, *, cycle: int, device):
+    """The task and the VAE + discriminator trained interleaved, an
+    adversary epoch after every task epoch (vaal_train.py:248-251). Returns
+    (model, optimizer, scheduler, trainer)."""
+    model, optimizer, scheduler = _fresh_state(cfg, num_classes, dataset, pool, canvases,
+                                               group_ids, cycle=cycle, device=device)
+    step_fn = make_train_step(model, optimizer, scheduler)
+    trainer = _make_vaal_trainer(
+        cfg, _steps_per_epoch(cfg, dataset, pool, canvases, group_ids, cycle=cycle), cycle,
+        device)
+    for epoch in range(cfg.epochs):
+        loader = _train_loader(cfg, dataset, pool, canvases, group_ids, cycle=cycle, epoch=epoch)
+        _task_epoch(cfg, step_fn, loader, cycle=cycle, epoch=epoch, device=device)
+        _vaal_adversary_epoch(cfg, trainer, dataset, pool, canvases, group_ids, cycle=cycle,
+                              epoch=epoch, device=device)
+    return model, optimizer, scheduler, trainer
+
+
+def _detect_host_fn(cfg: ALConfig, model: FasterRCNN, canvases, device):
+    """fn(list of (H, W, 3) arrays) -> per-image dicts (``boxes``,
+    ``scores``, ``labels``) in the images' own coordinates: SSM's
+    cross-validation re-detect, one image at a time on the first canvas."""
+    def run(images):
+        out = []
+        for img in images:
+            rec = ImageRecord(image_id="cv", image_path="", width=img.shape[1],
+                              height=img.shape[0], boxes=np.zeros((0, 4), np.float32),
+                              labels=np.zeros((0,), np.int32),
+                              difficult=np.zeros((0,), np.int32))
+            batch = make_padded_batch([img], [rec], canvases[0], min_size=cfg.min_size,
+                                      max_size=cfg.max_size, max_boxes=1, indices=[0])
+            with torch.inference_mode():
+                dets = model.detect(torch.from_numpy(batch.images).to(device),
+                                    torch.from_numpy(batch.valid_hw).to(device))
+                dets = dets.rescale(torch.from_numpy(batch.scale).to(device))
+            v = dets.valid[0].cpu().numpy()
+            out.append({"boxes": dets.boxes[0].cpu().numpy()[v],
+                        "scores": dets.scores[0].cpu().numpy()[v],
+                        "labels": dets.labels[0].cpu().numpy()[v]})
+        return out
+
+    return run
+
+
+def _ssm_pool_detections(model: FasterRCNN, loader, scfg: SSMConfig, device) -> dict[int, dict]:
+    """One batched pass over the pool collecting SSM's per-image inputs:
+    boxes (original coordinates), foreground score rows, and the
+    low-confidence ``al`` flag (frcnn_ssm.py:60,71-74)."""
+    out: dict[int, dict] = {}
+    with torch.inference_mode():
+        for batch in loader:
+            dets = model.detect(torch.from_numpy(batch.images).to(device),
+                                torch.from_numpy(batch.valid_hw).to(device))
+            dets = dets.rescale(torch.from_numpy(batch.scale).to(device))
+            boxes, rows, scores, valid = (t.cpu().numpy() for t in (
+                dets.boxes, dets.scores_cls, dets.scores, dets.valid))
+            for i, idx in enumerate(batch.image_idx):
+                m = valid[i]
+                out[int(idx)] = {
+                    "boxes": boxes[i][m],
+                    "score_rows": rows[i][m][:, 1:],          # no background column
+                    "al": bool(m.sum() == 0 or scores[i][m].max() < scfg.conf_thresh),
+                }
+    return out
 
 
 def _scoring_model(cfg: ALConfig, model: FasterRCNN) -> FasterRCNN:
@@ -204,9 +385,48 @@ def _scoring_model(cfg: ALConfig, model: FasterRCNN) -> FasterRCNN:
     return variant
 
 
+def _ssm_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolState, subset, loader,
+                canvases, rng: np.random.Generator, strategy_state: dict, device) -> np.ndarray:
+    """SSM's two stages over ``subset``: the pool detected by the SSM variant
+    of ``model`` (its postprocess; RPN counts and weights shared), then the
+    host selection whose easy single-class boxes are pasted into labeled
+    images and re-detected by ``model``. Adapts gamma and clslambda in
+    ``strategy_state``; returns positions into ``subset``."""
+    scfg: SSMConfig = strategy_state.setdefault("ssm_cfg", SSMConfig())
+    gamma = strategy_state.setdefault("gamma", scfg.gamma)
+    clslambda = strategy_state.setdefault("clslambda",
+                                          np.full(cfg.num_classes - 1, np.log(2.0)))
+    ssm_model = copy.copy(model)
+    ssm_model.cfg = dataclasses.replace(model.cfg, box_nms_thresh=scfg.nms_thresh,
+                                        ssm_mode=True)
+    by_idx = _ssm_pool_detections(ssm_model, loader, scfg, device)
+    pool_dets = [by_idx[int(idx)] for idx in subset]
+
+    def patch_getter(pos_i, box):
+        img = decode_image(dataset.record(int(subset[pos_i])).image_path).astype(np.float32)
+        x1, y1 = int(max(0, box[0])), int(max(0, box[1]))
+        x2, y2 = int(min(img.shape[1], box[2])), int(min(img.shape[0], box[3]))
+        if x2 <= x1 or y2 <= y1:
+            return None
+        return img[y1:y2, x1:x2]
+
+    cv = CrossValidator(dataset, _detect_host_fn(cfg, model, canvases, device), scfg, rng)
+    chosen, gamma, clslambda = ssm_select(
+        pool_dets, np.arange(len(subset)), cfg.budget_num, gamma=gamma, clslambda=clslambda,
+        cross_validator=cv, labeled_indices=pool.labeled, rng=rng, patch_getter=patch_getter)
+    strategy_state["gamma"] = gamma
+    strategy_state["clslambda"] = clslambda
+    return chosen
+
+
 def score_and_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolState, canvases,
-                     group_ids, *, cycle: int, device) -> np.ndarray:
-    """Dispatch on ``cfg.strategy``; returns the chosen DATASET indices."""
+                     group_ids, *, cycle: int, device,
+                     strategy_state: dict | None = None) -> np.ndarray:
+    """Dispatch on ``cfg.strategy``; returns the chosen DATASET indices.
+    ``strategy_state`` carries what a strategy keeps between cycles: SSM's
+    gamma and clslambda (updated here; defaults when absent), LL4AL's
+    ``lossnet`` and VAAL's ``vaal`` trainer (both required)."""
+    strategy_state = {} if strategy_state is None else strategy_state
     rng = np.random.default_rng(cfg.seed + 100 + cycle)
     subset = (pool.subsample_pool(cfg.pool_cap, rng) if cfg.pool_cap
               else pool.unlabeled.copy())
@@ -214,10 +434,24 @@ def score_and_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolStat
     if cfg.strategy == "random":
         return subset[random_select(len(subset), budget, rng)]
     if cfg.strategy not in STRATEGIES:
-        raise NotImplementedError(f"strategy {cfg.strategy!r} is not ported yet "
-                                  "(ROADMAP queue 1 item 7)")
+        raise ValueError(f"unknown strategy {cfg.strategy!r}")
     loader = _loaders(cfg, dataset, subset, batch_size=cfg.score_batch_size, train=False,
                       canvases=canvases, group_ids=group_ids)
+    if cfg.strategy == "ll4al":
+        fn = make_ll_score_fn(model, strategy_state["lossnet"])
+        return subset[ll_select(ll_scores(fn, loader, subset, device), budget)]
+    if cfg.strategy == "vaal":
+        trainer: VAALTrainer = strategy_state["vaal"]
+        pos = {int(i): p for p, i in enumerate(subset)}
+        scores = np.zeros(len(subset))
+        for batch in loader:
+            sc = trainer.unlabeled_scores(torch.from_numpy(batch.images).to(device))
+            for i, idx in enumerate(batch.image_idx):
+                scores[pos[int(idx)]] = sc[i]
+        return subset[vaal_select(scores, budget)]
+    if cfg.strategy == "ssm":
+        return subset[_ssm_select(cfg, model, dataset, pool, subset, loader, canvases, rng,
+                                  strategy_state, device)]
     generator = stream_generator(device, cfg.seed + 17, cycle)
     scoring_model = _scoring_model(cfg, model)
     if cfg.strategy == "ltc":
@@ -232,6 +466,29 @@ def score_and_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolStat
     consistency, corrs = score_pool(score_fn, loader, subset, generator)
     labeled_mean = labeled_class_counts(dataset, pool.labeled, cfg.num_classes - 1)
     return subset[cald_select(consistency, corrs, labeled_mean, budget, ccfg)]
+
+
+def _carry_meta(cycle: int, strategy_state: dict) -> dict:
+    meta: dict = {"cycle": cycle}
+    if "gamma" in strategy_state:                   # SSM's adapted thresholds
+        meta["ssm_gamma"] = strategy_state["gamma"]
+        meta["ssm_clslambda"] = strategy_state["clslambda"]
+    return meta
+
+
+def _carry_extra(strategy_state: dict) -> dict:
+    """The trained LossNet or VAE + discriminator, parameters only (as the
+    JAX package saves them), on the CPU."""
+    def cpu(module):
+        return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+    extra: dict = {}
+    if "lossnet" in strategy_state:
+        extra["ll_params"] = cpu(strategy_state["lossnet"])
+    if "vaal" in strategy_state:
+        extra["vaal_vae"] = cpu(strategy_state["vaal"].vae)
+        extra["vaal_d"] = cpu(strategy_state["vaal"].disc)
+    return extra
 
 
 def _sync(device):
@@ -254,6 +511,7 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
     test_group_ids = create_aspect_ratio_groups(test_ds.aspect_ratios(),
                                                 cfg.aspect_ratio_group_factor)
     pool = ALPoolState.initial(len(train_ds), cfg.init_num, cfg.seed)
+    strategy_state: dict = {}
     history = []
 
     resume_cycle = -1
@@ -264,6 +522,9 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
                              "(only the per-cycle checkpoints of al_loop are resumable)")
         pool = r_pool
         resume_cycle = int(r_meta["cycle"])
+        if "ssm_gamma" in r_meta:
+            strategy_state["gamma"] = float(r_meta["ssm_gamma"])
+            strategy_state["clslambda"] = np.asarray(r_meta["ssm_clslambda"])
         print(f"--resume: restored pool (labeled {len(pool.labeled)}) at cycle {resume_cycle}")
 
     profiler = None
@@ -285,6 +546,14 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
         first_ckpt = (os.path.join(cfg.first_checkpoint_path, f"{cfg.dataset}_{cfg.model}_1st")
                       if cfg.first_checkpoint_path else "")
         resuming_here = cycle == resume_cycle
+        if resuming_here and cfg.strategy in ("ll4al", "vaal"):
+            # the trained LossNet or VAE + discriminator ride in ``extra``;
+            # a checkpoint without them retrains the cycle
+            carry = load_extra(cfg.resume)
+            if not carry:
+                print(f"--resume: checkpoint lacks {cfg.strategy} carry-state; "
+                      "retraining the cycle")
+                resuming_here = False
         fresh = lambda c: _fresh_state(cfg, num_classes, train_ds, pool, canvases,  # noqa: E731
                                        group_ids, cycle=c, device=device)
         if resuming_here:
@@ -292,14 +561,42 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
             print(f"--resume: loading cycle checkpoint {cfg.resume}")
             model, optimizer, scheduler = fresh(cycle)
             load_checkpoint(cfg.resume, model, optimizer, scheduler)
+            if cfg.strategy == "ll4al":
+                strategy_state["lossnet"] = _new_lossnet(model, cfg, device)
+                strategy_state["lossnet"].load_state_dict(carry["ll_params"])
+            elif cfg.strategy == "vaal":
+                trainer = _make_vaal_trainer(cfg, 1, cycle, device)
+                trainer.vae.load_state_dict(carry["vaal_vae"])
+                trainer.disc.load_state_dict(carry["vaal_d"])
+                strategy_state["vaal"] = trainer
         elif cfg.skip and cycle == 0 and first_ckpt and os.path.isdir(first_ckpt):
             # reuse the saved first-cycle model (reference --skip); the
             # checkpoint's split is the one its weights were trained on
+            if cfg.strategy == "ll4al":
+                raise ValueError("--skip with ll4al: the first-cycle checkpoint holds no "
+                                 "LossNet; run without --skip")
             print(f"--skip: loading first-cycle checkpoint {first_ckpt}")
             model, optimizer, scheduler = fresh(0)
             skip_pool, _, _ = load_checkpoint(first_ckpt, model, optimizer, scheduler)
             if skip_pool is not None:
                 pool = skip_pool
+            if cfg.strategy == "vaal":
+                # the loaded task model skipped the interleaved adversary
+                # epochs: run them alone
+                trainer = _make_vaal_trainer(cfg, _steps_per_epoch(
+                    cfg, train_ds, pool, canvases, group_ids, cycle=cycle), cycle, device)
+                for epoch in range(cfg.epochs):
+                    _vaal_adversary_epoch(cfg, trainer, train_ds, pool, canvases, group_ids,
+                                          cycle=cycle, epoch=epoch, device=device)
+                strategy_state["vaal"] = trainer
+        elif cfg.strategy == "ll4al":
+            model, optimizer, scheduler, strategy_state["lossnet"] = _train_cycle_ll4al(
+                cfg, num_classes, train_ds, pool, canvases, group_ids, cycle=cycle,
+                device=device)
+        elif cfg.strategy == "vaal":
+            model, optimizer, scheduler, strategy_state["vaal"] = _train_cycle_vaal(
+                cfg, num_classes, train_ds, pool, canvases, group_ids, cycle=cycle,
+                device=device)
         else:
             model, optimizer, scheduler = train_cycle(cfg, num_classes, train_ds, pool,
                                                       canvases, group_ids, cycle=cycle,
@@ -325,12 +622,14 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
             save_checkpoint(os.path.join(cfg.output_dir, f"cycle_{cycle}"), model, optimizer,
                             scheduler, pool=pool,
                             rng={"seed": cfg.seed, "torch_cpu": torch.get_rng_state()},
-                            meta={"cycle": cycle})
+                            meta=_carry_meta(cycle, strategy_state),
+                            extra=_carry_extra(strategy_state))
 
         t_score = time.time()
         if cycle < cfg.cycles - 1:
             chosen = score_and_select(cfg, model, train_ds, pool, canvases, group_ids,
-                                      cycle=cycle, device=device)
+                                      cycle=cycle, device=device,
+                                      strategy_state=strategy_state)
             pool = pool.select(np.asarray(chosen))
         _sync(device)
         t_end = time.time()

@@ -81,3 +81,34 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
                 raise ValueError(f"two Flax leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+# the VAE's transposed convolutions (cald_tpu/models/vae.py ``dec{i}``)
+VAE_TRANSPOSED = tuple(f"dec{i}" for i in range(5))
+
+
+def module_state_dict(params: Mapping, *, transposed: tuple[str, ...] = ()
+                      ) -> dict[str, torch.Tensor]:
+    """Map a Flax ``params`` tree of explicitly named submodules to the
+    port's ``state_dict`` (float32 tensors); ``transposed`` names the
+    ``nn.ConvTranspose`` modules."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params):
+        *mod, name = path
+        a = np.array(leaf, np.float32)
+        if name == "kernel":
+            name = "weight"
+            if a.ndim == 4 and mod[-1] in transposed:
+                a = a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 2:
+                a = a.T
+            else:
+                raise ValueError(f"kernel of rank {a.ndim} at {'/'.join(path)}")
+        elif name == "scale":
+            name = "weight"
+        elif name != "bias":
+            raise ValueError(f"unexpected leaf {'/'.join(path)}")
+        out[".".join((*mod, name))] = torch.from_numpy(np.ascontiguousarray(a))
+    return out

@@ -30,7 +30,7 @@ from cald_tpu_torch.models.matcher import Draw
 from cald_tpu_torch.models.resnet import ResNetBackbone
 from cald_tpu_torch.models.roi_heads import (
     FastRCNNPredictor, TwoMLPHead, fastrcnn_loss, pool_box_features,
-    postprocess_detections, select_training_samples,
+    postprocess_detections, select_training_samples, ssm_postprocess_detections,
 )
 from cald_tpu_torch.models.rpn import RPNHead, rpn_loss, select_proposals
 from cald_tpu_torch.ops.roi_align import roi_levels
@@ -73,6 +73,10 @@ class FasterRCNNConfig:
     box_batch_size_per_image: int = 512
     box_positive_fraction: float = 0.25
     representation_size: int = 1024
+    # SSM's scoring variant: the frcnn_ssm.py:44-88 postprocess (no pre-NMS
+    # score filter, per-class top-k, post-NMS filter) into ssm_out_slots slots
+    ssm_mode: bool = False
+    ssm_out_slots: int = 300
 
     strides = (4, 8, 16, 32, 64)
 
@@ -194,7 +198,8 @@ class FasterRCNN(nn.Module):
 
     def detect(self, images: torch.Tensor, valid_hw: torch.Tensor) -> Detections:
         """images (B, H, W, 3) raw pixels; valid_hw (B, 2) int. Returns
-        fixed-slot Detections in the canvas (resized-image) coordinates."""
+        fixed-slot Detections in the canvas (resized-image) coordinates:
+        ``detections_per_img`` slots, or ``ssm_out_slots`` in ``ssm_mode``."""
         cfg = self.cfg
         pyramid = self.features(images, valid_hw, allow_fused=True)
         objectness, deltas = self.rpn_head(pyramid)
@@ -215,10 +220,15 @@ class FasterRCNN(nn.Module):
                                       spatial_scales=scales)
         rep = self.box_head(pooled.reshape(b * n, -1))
         class_logits, box_regression = self.box_predictor(rep)
+        args = (class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1), props,
+                pvalid, valid_hw)
+        if cfg.ssm_mode:
+            return ssm_postprocess_detections(
+                *args, score_thresh=cfg.box_score_thresh, nms_thresh=cfg.box_nms_thresh,
+                detections_per_class=cfg.detections_per_img, out_slots=cfg.ssm_out_slots)
         return postprocess_detections(
-            class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1), props,
-            pvalid, valid_hw, score_thresh=cfg.box_score_thresh,
-            nms_thresh=cfg.box_nms_thresh, detections_per_img=cfg.detections_per_img)
+            *args, score_thresh=cfg.box_score_thresh, nms_thresh=cfg.box_nms_thresh,
+            detections_per_img=cfg.detections_per_img)
 
     def forward(self, images: torch.Tensor, valid_hw: torch.Tensor) -> Detections:
         return self.detect(images, valid_hw)

@@ -49,3 +49,25 @@ def random_init_(model: nn.Module, seed: int) -> None:
                 continue
             if m.bias is not None:
                 m.bias.zero_()
+
+
+def lecun_init_(model: nn.Module, seed: int) -> None:
+    """Flax's defaults for every ``Conv``, ``nn.ConvTranspose2d`` and ``Dense`` of
+    ``model`` (truncated lecun-normal kernels over the fan-in, zero biases),
+    GroupNorm scale 1 and bias 0: the initial distributions of the JAX
+    package's ``LossNet``, ``VAAL_VAE`` and ``VAALDiscriminator``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+            elif isinstance(m, (Conv, Dense)):
+                fan_in = m.weight[0].numel()
+                _truncated_(m.weight, math.sqrt(1.0 / fan_in), g)
+            elif isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
+                _truncated_(m.weight, math.sqrt(1.0 / fan_in), g)
+            else:
+                continue
+            if m.bias is not None:
+                m.bias.zero_()

@@ -5,7 +5,9 @@ Training: gt boxes are appended to the proposals, matched at 0.5/0.5 (no
 low-quality matches) and sampled 512 @ 25% positives; the losses are cross
 entropy and smooth-L1 (beta 1/9) on the matched class's regression row, both
 normalized by the sample count. Inference: softmax rows expand to (proposal,
-class) instances, score filter 0.05, per-class NMS 0.5, top-100.
+class) instances, score filter 0.05, per-class NMS 0.5, top-100; SSM's
+variant (``ssm_postprocess_detections``) NMSes at 0.3, keeps the top 100 per
+class in 300 slots and filters the scores after NMS.
 """
 
 from __future__ import annotations
@@ -123,37 +125,29 @@ def pool_box_features(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                                   *[f.contiguous() for f in feats])
 
 
-def postprocess_detections(class_logits: torch.Tensor, box_regression: torch.Tensor,
-                           proposals: torch.Tensor, prop_valid: torch.Tensor,
-                           valid_hw: torch.Tensor, *, score_thresh: float = 0.05,
-                           nms_thresh: float = 0.5, detections_per_img: int = 100,
-                           nms_pre_size: int = 2048) -> Detections:
-    """class_logits (B, N, C), box_regression (B, N, 4C), proposals (B, N, 4),
-    prop_valid (B, N), valid_hw (B, 2) -> fixed-slot Detections (B, K, ...).
-
-    The reference's postprocess: score filter > 0.05, per-class NMS 0.5, a
-    global top-100; ``prob_max`` is the max over foreground classes; no
-    small-box filter.
-    """
+def _fg_instances(class_logits: torch.Tensor, box_regression: torch.Tensor,
+                  proposals: torch.Tensor, valid_hw: torch.Tensor):
+    """Softmax rows (B, N, C) and the foreground (proposal, class) instances
+    in row-major order: their scores (B, N(C-1)), decoded and clipped boxes
+    (B, N(C-1), 4), labels (B, N(C-1)) and proposal indices (N(C-1),)."""
     b, n, c = class_logits.shape
     scores = torch.softmax(class_logits, dim=-1)                       # (B, N, C)
     boxes = decode_boxes(box_regression.reshape(b, n, c, 4), proposals,
                          weights=ROI_REG_WEIGHTS)                      # (B, N, C, 4)
     hw = valid_hw.to(boxes.dtype)
     boxes = clip_boxes(boxes, (hw[:, 0, None, None], hw[:, 1, None, None]))
-
-    # foreground (class >= 1) instances, (proposal, class) row-major
     fg_scores = scores[:, :, 1:].reshape(b, -1)
     fg_boxes = boxes[:, :, 1:].reshape(b, -1, 4)
     fg_labels = torch.arange(1, c, device=scores.device).repeat(n).expand(b, -1)
     prop_idx = torch.arange(n, device=scores.device).repeat_interleave(c - 1)
-    cand = (fg_scores > score_thresh) & prop_valid.repeat_interleave(c - 1, dim=1)
+    return scores, fg_scores, fg_boxes, fg_labels, prop_idx
 
-    keep_idx, mask = batched_nms(
-        fg_boxes, fg_scores, fg_labels, iou_threshold=nms_thresh,
-        max_outputs=detections_per_img, valid=cand,
-        pre_nms_size=min(fg_boxes.shape[1], nms_pre_size))
 
+def _detections(scores, fg_scores, fg_boxes, fg_labels, prop_idx, proposals,
+                keep_idx: torch.Tensor, mask: torch.Tensor) -> Detections:
+    """The kept instances ``keep_idx`` (B, K) as Detections, zero where
+    ``mask`` is False."""
+    c = scores.shape[-1]
     pidx = prop_idx[keep_idx]                                          # (B, K)
     m = mask.to(scores.dtype)
     row = torch.gather(scores, 1, pidx[..., None].expand(-1, -1, c))   # (B, K, C)
@@ -166,3 +160,64 @@ def postprocess_detections(class_logits: torch.Tensor, box_regression: torch.Ten
         prob_max=row[..., 1:].amax(dim=-1) * m,
         props=torch.gather(proposals, 1, pidx[..., None].expand(-1, -1, 4)) * m[..., None],
     )
+
+
+def postprocess_detections(class_logits: torch.Tensor, box_regression: torch.Tensor,
+                           proposals: torch.Tensor, prop_valid: torch.Tensor,
+                           valid_hw: torch.Tensor, *, score_thresh: float = 0.05,
+                           nms_thresh: float = 0.5, detections_per_img: int = 100,
+                           nms_pre_size: int = 2048) -> Detections:
+    """class_logits (B, N, C), box_regression (B, N, 4C), proposals (B, N, 4),
+    prop_valid (B, N), valid_hw (B, 2) -> fixed-slot Detections (B, K, ...).
+
+    The reference's postprocess: score filter > 0.05, per-class NMS 0.5, a
+    global top-100; ``prob_max`` is the max over foreground classes; no
+    small-box filter.
+    """
+    c = class_logits.shape[-1]
+    inst = _fg_instances(class_logits, box_regression, proposals, valid_hw)
+    _, fg_scores, fg_boxes, fg_labels, _ = inst
+    cand = (fg_scores > score_thresh) & prop_valid.repeat_interleave(c - 1, dim=1)
+    keep_idx, mask = batched_nms(
+        fg_boxes, fg_scores, fg_labels, iou_threshold=nms_thresh,
+        max_outputs=detections_per_img, valid=cand,
+        pre_nms_size=min(fg_boxes.shape[1], nms_pre_size))
+    return _detections(*inst, proposals, keep_idx, mask)
+
+
+def ssm_postprocess_detections(class_logits: torch.Tensor, box_regression: torch.Tensor,
+                               proposals: torch.Tensor, prop_valid: torch.Tensor,
+                               valid_hw: torch.Tensor, *, score_thresh: float = 0.05,
+                               nms_thresh: float = 0.3, detections_per_class: int = 100,
+                               out_slots: int = 300, nms_pre_size: int = 4096) -> Detections:
+    """The SSM variant postprocess (frcnn_ssm.py:44-88), fixed-shape; shapes
+    as ``postprocess_detections`` with ``out_slots`` slots.
+
+    It differs from the standard path in exactly the reference's ways: no
+    score filter before NMS, per-class NMS at 0.3, the top
+    ``detections_per_class`` survivors per class (not a global top-k), and
+    the ``score > score_thresh`` filter after NMS.
+
+    Candidates at or below ``score_thresh`` are masked before NMS all the
+    same, which changes no output: greedy suppression flows only from
+    higher- to lower-scored boxes, so a sub-threshold candidate cannot
+    change which above-threshold boxes survive, and a sub-threshold survivor
+    ranks below every above-threshold one of its class and is filtered
+    after. ``out_slots`` and ``nms_pre_size`` bound the cross-class union
+    and the NMS input, top-scoring first.
+    """
+    c = class_logits.shape[-1]
+    inst = _fg_instances(class_logits, box_regression, proposals, valid_hw)
+    _, fg_scores, fg_boxes, fg_labels, _ = inst
+    cand = prop_valid.repeat_interleave(c - 1, dim=1) & (fg_scores > score_thresh)
+    keep_idx, keep_valid = batched_nms(
+        fg_boxes, fg_scores, fg_labels, iou_threshold=nms_thresh, max_outputs=out_slots,
+        valid=cand, pre_nms_size=min(fg_boxes.shape[1], nms_pre_size))
+    # survivors arrive score-descending, so the rank within the class is the
+    # count of earlier survivors of that class (a one-hot prefix sum)
+    klabels = torch.gather(fg_labels, 1, keep_idx)
+    kscores = torch.gather(fg_scores, 1, keep_idx)
+    onehot = F.one_hot(klabels, c) * keep_valid[..., None]
+    rank = torch.gather(onehot.cumsum(dim=1) - onehot, 2, klabels[..., None])[..., 0]
+    mask = keep_valid & (rank < detections_per_class) & (kscores > score_thresh)
+    return _detections(*inst, proposals, keep_idx, mask)

@@ -125,6 +125,7 @@ The line before the last is a JSON object describing each kernel; the last is
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -1070,18 +1071,21 @@ def trace_summary(path: str, top: int = 6) -> dict:
 
 class StageCounts:
     """While entered, patches ``cli.driver`` to record by stage of
-    ``al_loop`` (train_cycle, evaluate, score_and_select) each kernel's
-    launches, the training steps and their losses, the detects (stage,
-    images), the first layers' parameters of each trained model, and the
-    peak device memory of each score call. Every count is set to 0 on
-    entry and read on exit (``launches``)."""
+    ``al_loop`` (the cycle trainings, evaluate, score_and_select, and VAAL's
+    adversary epochs inside its training) each kernel's launches, the
+    training steps and their losses (the task steps, LL4AL's joint steps and
+    VAAL's VAE + discriminator steps apart), the detects (stage, images),
+    the first layers' parameters of each trained model, and the peak device
+    memory of each score call. Every count is set to 0 on entry and read on
+    exit (``launches``)."""
 
     FIRST_LAYERS = ("backbone.conv1", "backbone.bn1", "backbone.layer1")
 
     def __init__(self, driver, kernels: dict, device):
         self.driver, self.kernels, self.device = driver, kernels, device
-        self.stages = {"train": [], "eval": [], "score": []}
+        self.stages = {"train": [], "eval": [], "score": [], "adversary": []}
         self.steps, self.losses, self.detects, self.trained, self.score_peak = [], [], [], [], []
+        self.ll_steps, self.vaal_steps = [], []
         self.stage = None
 
     def _counted(self, stage, fn):
@@ -1089,7 +1093,7 @@ class StageCounts:
 
         def run(*args, **kwargs):
             before = {k: v.launches for k, v in self.kernels.items()}
-            self.stage = stage
+            outer, self.stage = self.stage, stage
             if stage == "score" and self.device.type == "cuda":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1102,12 +1106,15 @@ class StageCounts:
                                      for n, p in out[0].named_parameters()
                                      if n.startswith(self.FIRST_LAYERS)})
             self.stages[stage].append({k: v.launches - before[k] for k, v in self.kernels.items()})
-            self.stage = None
+            self.stage = outer
             return out
         return run
 
     def __enter__(self):
+        from cald_tpu_torch.strategies.vaal import VAALTrainer
+
         driver, orig_epoch = self.driver, self.driver.train_one_epoch
+        orig_ll, self._vaal_step = driver.make_ll_train_step, VAALTrainer.train_step
         self._detect = driver.FasterRCNN.detect
 
         def epoch_counting(step_fn, *args, **kwargs):
@@ -1118,32 +1125,54 @@ class StageCounts:
                 return m
             return orig_epoch(step, *args, **kwargs)
 
+        def ll_counting(*args, **kwargs):
+            step_fn = orig_ll(*args, **kwargs)
+
+            def step(*a, **k):
+                m = step_fn(*a, **k)
+                self.ll_steps.append({**{n: float(v) for n, v in m.items()},
+                                      "detached": k["detach_features"]})
+                return m
+            return step
+
+        def vaal_counting(trainer, *a):
+            out = self._vaal_step(trainer, *a)
+            self.vaal_steps.append(tuple(float(v) for v in out))
+            return out
+
         def detect_counting(model, images, valid_hw):
             self.detects.append((self.stage, images.shape[0]))
             return self._detect(model, images, valid_hw)
 
         patches = {"train_cycle": self._counted("train", driver.train_cycle),
+                   "_train_cycle_ll4al": self._counted("train", driver._train_cycle_ll4al),
+                   "_train_cycle_vaal": self._counted("train", driver._train_cycle_vaal),
+                   "_vaal_adversary_epoch": self._counted("adversary",
+                                                          driver._vaal_adversary_epoch),
                    "evaluate": self._counted("eval", driver.evaluate),
                    "score_and_select": self._counted("score", driver.score_and_select),
-                   "train_one_epoch": epoch_counting}
+                   "train_one_epoch": epoch_counting, "make_ll_train_step": ll_counting}
         self._saved = {k: getattr(driver, k) for k in patches}
         for k, v in patches.items():
             setattr(driver, k, v)
         driver.FasterRCNN.detect = detect_counting
+        VAALTrainer.train_step = vaal_counting
         for k in self.kernels.values():
             k.launches = 0
         return self
 
     def __exit__(self, *exc):
+        from cald_tpu_torch.strategies.vaal import VAALTrainer
+
         self.launches = {name: k.launches for name, k in self.kernels.items()}
         for k, v in self._saved.items():
             setattr(self.driver, k, v)
         self.driver.FasterRCNN.detect = self._detect
+        VAALTrainer.train_step = self._vaal_step
         return False
 
     def total(self, *stages) -> dict:
         return {k: sum(c[k] for st in stages for c in self.stages[st]) for k in self.kernels}
-
 
 
 AL_TRAIN_IMAGES = 48
@@ -1258,7 +1287,7 @@ def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
     if flm0["roi_align_group_fwd"] != 2 or flm0["roi_align"] != 0 or not np.isfinite(cons).all():
         raise AssertionError("CALD_TPU_ROI_FLM=0 scoring did not run K4 twice without K1")
     return {"history": history, "launches": launches, "steps": len(steps), "wall_s": wall,
-            "trace": trace}
+            "trace": trace, "backbone": cfg.pretrained_backbone}
 
 
 def group_pyramid_check(device) -> dict:
@@ -1495,7 +1524,8 @@ def learnability_phase(device, kernels: dict, card: str, workdir: str) -> dict:
                    tiny=True, norm="group", cycles=1, epochs=LEARN_EPOCHS, batch_size=4,
                    init_num=32, budget_num=1, score_batch_size=4, workers=4, min_size=96,
                    max_size=128, max_boxes=8, print_freq=100000, lr=0.005, lr_steps=(20, 26),
-                   aspect_ratio_group_factor=0, device=device.type).resolve()
+                   aspect_ratio_group_factor=0, output_dir=os.path.join(workdir, "learn_out"),
+                   device=device.type).resolve()
     counts = StageCounts(driver, kernels, device)
     with counts:
         t0 = time.perf_counter()
@@ -1515,7 +1545,382 @@ def learnability_phase(device, kernels: dict, card: str, workdir: str) -> dict:
         raise AssertionError("the learnability run did not go through K2/K3 and K1")
     if not (all(v > 0.7 for v in present.values()) and mean > 0.85):
         raise AssertionError(f"the tiny detector did not learn: {present}")
-    return {"ap50": present, "mean": mean, "steps": steps, "wall_s": wall}
+    return {"ap50": present, "mean": mean, "steps": steps, "wall_s": wall, "cfg": cfg,
+            "dataset": ds, "checkpoint": os.path.join(cfg.output_dir, "cycle_0")}
+
+
+# Phase 13. VAAL's recipe as the JAX package gives it (VAE SGD at lr/10 with
+# momentum on 0..255 pixels, the KLD an unnormalised batch sum) diverges at
+# the reference lr in both packages: on the CPU at the reference widths the
+# VAE loss passes 1e31 at the 4th step from lr 0.0025 and is NaN by the 8th
+# from 2.5e-4; from 2.5e-5 it stays near 3e3 over 12 steps. Part (b) runs at
+# 2.5e-5 so that its finite-loss check means something.
+P13_VAAL_LR = 2.5e-5
+P13_BUDGET = 8
+
+
+def _p13_cfg(workdir: str, backbone: str, device, **kw):
+    """Phase 11's cut (2 cycles of 1 epoch, batch 4, 16 initial images,
+    budget 8, score batch 8) from phase 11's torchvision-layout backbone."""
+    from cald_tpu_torch.cli.config import ALConfig
+
+    base = dict(data_path=os.path.join(workdir, "train"), cycles=2, epochs=1,
+                batch_size=TRAIN_BATCH, init_num=16, budget_num=P13_BUDGET,
+                score_batch_size=BATCH, workers=4, print_freq=1, pretrained_backbone=backbone,
+                device=device.type)
+    return ALConfig(**{**base, **kw}).resolve()
+
+
+def _check_inference(counts, what: str) -> int:
+    """One K1 per detect of evaluation and scoring and no other RoI kernel
+    there; returns the number of those detects."""
+    k = counts.total("eval", "score")
+    n = sum(1 for st, _ in counts.detects if st in ("eval", "score"))
+    if not (k["roi_align"] == n and k["roi_align_train_fwd"] == 0 and k["roi_align_bwd"] == 0
+            and k["roi_align_group_fwd"] == 0):
+        raise AssertionError(f"{what}: evaluation and scoring did not launch K1 once per "
+                             f"detect ({n} detects): {k}")
+    return n
+
+
+def _check_labeled(history, cfg, what: str):
+    if [h["labeled"] for h in history] != [cfg.init_num + cfg.budget_num] * cfg.cycles:
+        raise AssertionError(f"{what}: the labeled set did not grow by the budget: {history}")
+
+
+def _print_cycles(history, label: str, card: str):
+    for h in history:
+        print(f"{label}: cycle {h['cycle']}: labeled {h['labeled']}, mAP {h['eval']['mAP']:.4f}; "
+              f"wall {h['time_s']:.2f} s (train {h['split_s']['train']:.2f}, eval "
+              f"{h['split_s']['eval']:.2f}, score {h['split_s']['score']:.2f}) on {card}")
+
+
+def ll4al_phase(device, kernels: dict, card: str, workdir: str, backbone: str) -> dict:
+    """Phase 13(a): ``al_loop`` with LL4AL, 2 epochs a cycle of which the
+    second detaches LossNet's features; one K2 and one K3 per joint step, no
+    RoI kernel in LossNet's scoring; on one fixed batch with fixed draws,
+    the detector's update with detached features against its update at
+    ll_weight 0 (held to the spread of two identical ll_weight-0 steps);
+    the warm joint step against the frozen task step, in turns."""
+    import torch
+
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.engine.checkpoint import load_extra
+    from cald_tpu_torch.engine.optim import RESNET_FROZEN_L3, make_sgd
+    from cald_tpu_torch.engine.train import make_train_step
+    from cald_tpu_torch.models.init import random_init_
+    from cald_tpu_torch.models.matcher import generator_gumbel
+    from cald_tpu_torch.strategies.ll4al import make_ll_train_step
+
+    _, datasets = _al_data(workdir)
+    cfg = _p13_cfg(workdir, backbone, device, strategy="ll4al", epochs=2, task_epochs=1,
+                   output_dir=os.path.join(workdir, "ll4al_out"))
+    num_classes = len(datasets[0].class_names)
+    counts = StageCounts(driver, kernels, device)
+    with counts:
+        t0 = time.perf_counter()
+        history = driver.al_loop(cfg, datasets=datasets)
+        wall = time.perf_counter() - t0
+    joint, train_k, score_k = counts.ll_steps, counts.total("train"), counts.total("score")
+    _print_cycles(history, "ll4al al loop", card)
+    print(f"ll4al al loop: {len(joint)} joint steps ({sum(s['detached'] for s in joint)} with "
+          f"detached features), last task loss {joint[-1]['task_loss']:.4f}, LossNet loss "
+          f"{joint[-1]['ll_loss']:.4f}; launches by stage {json.dumps(counts.stages)}; "
+          f"{wall:.2f} s on {card}")
+    if not (joint and {s["detached"] for s in joint} == {False, True} and not counts.steps):
+        raise AssertionError("ll4al: the joint and the detached epochs did not both run")
+    if not all(math.isfinite(s[k]) for s in joint for k in ("task_loss", "ll_loss", "loss")):
+        raise AssertionError("ll4al: non-finite task or LossNet loss")
+    if not (train_k["roi_align_train_fwd"] == len(joint) == train_k["roi_align_bwd"]
+            and train_k["roi_align"] == 0 and train_k["roi_align_group_fwd"] == 0):
+        raise AssertionError(f"ll4al: training did not launch K2 and K3 once per joint step: "
+                             f"{train_k}")
+    if any(score_k.values()):
+        raise AssertionError(f"ll4al: LossNet scoring launched a RoI kernel: {score_k}")
+    _check_inference(counts, "ll4al")
+    _check_labeled(history, cfg, "ll4al")
+    # every LossNet parameter moves but the last bias, which the ranking
+    # loss's pairwise differences cancel (it gets no gradient)
+    model, _ = driver.build_model(cfg, num_classes)
+    fresh = driver._new_lossnet(model, cfg, "cpu").state_dict()
+    for cycle in range(cfg.cycles):
+        trained = load_extra(os.path.join(cfg.output_dir, f"cycle_{cycle}"))["ll_params"]
+        still = [k for k, v in fresh.items() if torch.equal(v, trained[k])]
+        if still != ["linear.bias"]:
+            raise AssertionError(f"ll4al: LossNet parameters unmoved in cycle {cycle}: {still}")
+
+    # the fixed batch: detached features against ll_weight 0
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    groups = create_aspect_ratio_groups(datasets[0].aspect_ratios(), cfg.aspect_ratio_group_factor)
+    tb = next(iter(driver._loaders(cfg, datasets[0], range(TRAIN_BATCH), batch_size=TRAIN_BATCH,
+                                   train=True, canvases=canvases, group_ids=groups, seed=SEED)))
+    tbatch = driver._tensors(tb, device)
+    random_init_(model, cfg.seed)
+    driver._apply_pretrained_backbone(model, cfg)
+    model.to(device)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def update(ll_weight: float, detach: bool) -> dict:
+        model.load_state_dict(init)
+        lossnet = driver._new_lossnet(model, cfg, device)
+        step = make_ll_train_step(model, lossnet,
+                                  make_sgd(model, FIXED_LR, frozen_prefixes=RESNET_FROZEN_L3),
+                                  make_sgd(lossnet, FIXED_LR), ll_weight=ll_weight)
+        before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+        step(*tbatch, generator_gumbel(torch.Generator(device=device).manual_seed(SEED + 9)),
+             detach_features=detach)
+        return {n: p.detach() - before[n] for n, p in model.named_parameters() if p.requires_grad}
+
+    def rel(a: dict, b: dict) -> float:
+        return max(((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item()
+                   for n in b)
+
+    detached, alone, again = update(cfg.ll_weight, True), update(0.0, False), update(0.0, False)
+    noise, err = rel(again, alone), rel(detached, alone)
+    limit = max(4 * noise, 1e-3)
+    print(f"ll4al fixed batch: the detector's update with detached features against ll_weight 0, "
+          f"max relative difference per tensor {err:.3e}; two ll_weight-0 steps differ by "
+          f"{noise:.3e} (K3's atomics); limit {limit:.3e}")
+    if not err <= limit:
+        raise AssertionError("ll4al: detached features changed the detector's update")
+
+    # warm steps in turns: the frozen task step, the joint step
+    model.load_state_dict(init)
+    lossnet = driver._new_lossnet(model, cfg, device)
+    joint_step = make_ll_train_step(model, lossnet, make_sgd(model, FIXED_LR, frozen_prefixes=
+                                                             RESNET_FROZEN_L3),
+                                    make_sgd(lossnet, FIXED_LR), ll_weight=cfg.ll_weight)
+    task_step = make_train_step(model, make_sgd(model, FIXED_LR, frozen_prefixes=RESNET_FROZEN_L3))
+    gumbel = generator_gumbel(torch.Generator(device=device).manual_seed(SEED + 8))
+    times = {"frozen": [], "joint": []}
+    for name in ("frozen", "joint", "joint", "frozen"):
+        fn = ((lambda: task_step(*tbatch, gumbel)) if name == "frozen"
+              else (lambda: joint_step(*tbatch, gumbel, detach_features=False)))
+        times[name].append(_warm_ms(fn, 5))
+    print(f"ll4al time: joint step of B={TRAIN_BATCH} {times['joint']} ms, frozen task step "
+          f"{times['frozen']} ms (in turns) on {card}")
+    del model, lossnet, init
+    torch.cuda.empty_cache()
+    return {"history": history, "joint_steps": len(joint), "train_launches": train_k,
+            "fixed_batch_rel": err, "noise_rel": noise, "joint_ms": times["joint"],
+            "frozen_ms": times["frozen"], "wall_s": wall}
+
+
+def vaal_phase(device, kernels: dict, card: str, workdir: str, backbone: str) -> dict:
+    """Phase 13(b): ``al_loop`` with VAAL (the VAE at the reference widths,
+    lr ``P13_VAAL_LR``): one K2 and one K3 per task step, no RoI kernel in
+    the adversary epochs or VAAL scoring, finite VAE and discriminator
+    losses, both nets moved, scores in [-1, 0]; warm VAE + discriminator
+    steps, score calls and their peak device memory."""
+    import torch
+
+    from cald_tpu_torch.augment.suite import generator_draw
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.engine.checkpoint import load_extra
+
+    _, datasets = _al_data(workdir)
+    cfg = _p13_cfg(workdir, backbone, device, strategy="vaal", lr=P13_VAAL_LR,
+                   output_dir=os.path.join(workdir, "vaal_out"))
+    scores = []
+    orig_select = driver.vaal_select
+    driver.vaal_select = lambda s, budget: scores.append(s) or orig_select(s, budget)
+    counts = StageCounts(driver, kernels, device)
+    try:
+        with counts:
+            t0 = time.perf_counter()
+            history = driver.al_loop(cfg, datasets=datasets)
+            wall = time.perf_counter() - t0
+    finally:
+        driver.vaal_select = orig_select
+    steps, adv = len(counts.steps), counts.vaal_steps
+    train_k, adv_k, score_k = (counts.total("train"), counts.total("adversary"),
+                               counts.total("score"))
+    _print_cycles(history, "vaal al loop", card)
+    print(f"vaal al loop (lr {cfg.lr}): {steps} task steps, {len(adv)} VAE + discriminator "
+          f"steps, last vae_loss {adv[-1][0]:.2f} dis_loss {adv[-1][1]:.4f}; scores "
+          f"{np.array2string(np.concatenate(scores), precision=4, max_line_width=200)}; "
+          f"launches by stage {json.dumps(counts.stages)}; peak device memory of the score "
+          f"call {max(counts.score_peak, default=0) / 2 ** 30:.2f} GiB; {wall:.2f} s on {card}")
+    if not (steps and adv and all(math.isfinite(v) for a in adv for v in a)
+            and all(math.isfinite(v) for d in counts.losses for v in d.values())):
+        raise AssertionError("vaal: non-finite task, VAE or discriminator loss")
+    if not (train_k["roi_align_train_fwd"] == steps == train_k["roi_align_bwd"]
+            and train_k["roi_align"] == 0 and train_k["roi_align_group_fwd"] == 0):
+        raise AssertionError(f"vaal: training did not launch K2 and K3 once per task step: "
+                             f"{train_k}")
+    if any(adv_k.values()) or any(score_k.values()):
+        raise AssertionError(f"vaal: a RoI kernel in the adversary epochs ({adv_k}) or in "
+                             f"VAAL scoring ({score_k})")
+    s = np.concatenate(scores)
+    if not (np.isfinite(s).all() and s.min() >= -1.0 and s.max() <= 0.0):
+        raise AssertionError("vaal: scores not finite or outside [-1, 0]")
+    _check_inference(counts, "vaal")
+    _check_labeled(history, cfg, "vaal")
+    for cycle in range(cfg.cycles):
+        carry = load_extra(os.path.join(cfg.output_dir, f"cycle_{cycle}"))
+        fresh = driver._make_vaal_trainer(cfg, 1, cycle, device)
+        for key, net in (("vaal_vae", fresh.vae), ("vaal_d", fresh.disc)):
+            still = [k for k, v in net.state_dict().items()
+                     if torch.equal(v.cpu(), carry[key][k])]
+            if still:
+                raise AssertionError(f"vaal: {key} parameters did not move in cycle {cycle}: "
+                                     f"{still}")
+        del fresh
+
+    # warm steps and score calls
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    groups = create_aspect_ratio_groups(datasets[0].aspect_ratios(), cfg.aspect_ratio_group_factor)
+
+    def images(idx, b, train):
+        batch = next(iter(driver._loaders(cfg, datasets[0], idx, batch_size=b, train=train,
+                                          canvases=canvases, group_ids=groups, seed=SEED)))
+        return torch.from_numpy(batch.images).to(device)
+
+    lab, unlab = images(range(TRAIN_BATCH), TRAIN_BATCH, True), images(
+        range(TRAIN_BATCH, 2 * TRAIN_BATCH), TRAIN_BATCH, True)
+    pool = images(range(BATCH), BATCH, False)
+    trainer = driver._make_vaal_trainer(cfg, 4, 0, device)
+    draw = generator_draw(torch.Generator(device=device).manual_seed(SEED + 10))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _warm_ms(lambda: trainer.train_step(lab, unlab, draw), 5)
+    step_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    score_ms = _warm_ms(lambda: trainer.unlabeled_scores(pool), 5)
+    score_peak = torch.cuda.max_memory_allocated()
+    print(f"vaal time: VAE + discriminator step on {TRAIN_BATCH} + {TRAIN_BATCH} canvases "
+          f"{step_ms:.1f} ms/step (peak device memory {step_peak / 2 ** 30:.2f} GiB); score "
+          f"call of B={BATCH} {score_ms:.1f} ms/call, {BATCH / score_ms * 1e3:.2f} images/s "
+          f"(peak {score_peak / 2 ** 30:.2f} GiB) on {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"history": history, "task_steps": steps, "vaal_steps": len(adv),
+            "train_launches": train_k, "step_ms": step_ms, "score_ms": score_ms,
+            "step_peak_bytes": step_peak, "score_peak_bytes": score_peak, "wall_s": wall}
+
+
+def ssm_phase(device, kernels: dict, card: str, workdir: str, backbone: str,
+              learn: dict) -> dict:
+    """Phase 13(c): ``al_loop`` with SSM at full width (an untrained detector:
+    stage 1 sends every image to labeling), then ``score_and_select`` with
+    SSM on the learnability run's trained detector and its own set, which
+    reaches stage 2 and the cross-validator; one K1 per pool detect and per
+    re-detect; the SSM-mode detect against the standard one on R50, in
+    turns."""
+    import torch
+
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.data.pool import ALPoolState
+    from cald_tpu_torch.engine.checkpoint import load_checkpoint
+    from cald_tpu_torch.strategies import ssm
+
+    flags, redetects, easy, votes = [], [], [], []
+    orig = {"pool": driver._ssm_pool_detections, "host": driver._detect_host_fn,
+            "judge": ssm.judge_uv, "verify": ssm.CrossValidator.verify}
+
+    def pool_detections(*a, **k):
+        out = orig["pool"](*a, **k)
+        flags.extend(d["al"] for d in out.values())
+        return out
+
+    def detect_host_fn(*a, **k):
+        run = orig["host"](*a, **k)
+        return lambda images: redetects.append(len(images)) or run(images)
+
+    def judge_uv(*a, **k):
+        out = orig["judge"](*a, **k)
+        easy.append(out[0])
+        return out
+
+    def verify(*a, **k):
+        votes.append(orig["verify"](*a, **k))
+        return votes[-1]
+
+    driver._ssm_pool_detections, driver._detect_host_fn = pool_detections, detect_host_fn
+    ssm.judge_uv, ssm.CrossValidator.verify = judge_uv, verify
+    try:
+        # (i) the loop at full width
+        _, datasets = _al_data(workdir)
+        cfg = _p13_cfg(workdir, backbone, device, strategy="ssm")
+        counts = StageCounts(driver, kernels, device)
+        with counts:
+            t0 = time.perf_counter()
+            history = driver.al_loop(cfg, datasets=datasets)
+            wall = time.perf_counter() - t0
+        _print_cycles(history, "ssm al loop", card)
+        n_infer = _check_inference(counts, "ssm")
+        pool_sizes = [n for st, n in counts.detects if st == "score"]
+        print(f"ssm al loop: {len(flags)} pool images, {sum(flags)} sent to labeling by stage 1; "
+              f"score detects {pool_sizes} ({len(redetects)} re-detects); {n_infer} detects with "
+              f"K1 {counts.launches['roi_align']}; {wall:.2f} s on {card}")
+        _check_labeled(history, cfg, "ssm")
+        if not (flags and all(flags)):
+            raise AssertionError("ssm: the untrained detector's pool did not all go to stage 1")
+
+        # (ii) cross-validation on the trained tiny group-norm detector
+        flags.clear()
+        lcfg = dataclasses.replace(learn["cfg"], strategy="ssm", budget_num=P13_BUDGET)
+        ds = learn["dataset"]
+        model, _ = driver.build_model(lcfg, len(ds.class_names))
+        model.to(device)
+        load_checkpoint(learn["checkpoint"], model)
+        pool = ALPoolState.initial(len(ds), len(ds) // 2, SEED)
+        state: dict = {}
+        counts = StageCounts(driver, kernels, device)
+        with counts:
+            chosen = driver.score_and_select(
+                lcfg, model, ds, pool, default_canvases(lcfg.min_size, lcfg.max_size),
+                create_aspect_ratio_groups(ds.aspect_ratios(), lcfg.aspect_ratio_group_factor),
+                cycle=0, device=device, strategy_state=state)
+        n_detects = len(counts.detects)
+        print(f"ssm cross-validation (trained tiny group-norm detector, {len(pool.unlabeled)} "
+              f"pool and {len(pool.labeled)} labeled images): stage 1 sent {sum(flags)} of "
+              f"{len(flags)} to labeling; {sum(easy)} easy boxes of {len(easy)} judged; "
+              f"{len(votes)} verifications ({sum(votes)} passed) with {sum(redetects)} paste "
+              f"re-detects; {n_detects} detects, K1 {counts.launches['roi_align']}; selected "
+              f"{sorted(chosen.tolist())}; gamma 0.15 -> {state['gamma']:.2f}, clslambda "
+              f"{np.array2string(state['clslambda'][:3], precision=4)}...")
+        if not (sum(easy) > 0 and sum(redetects) > 0):
+            raise AssertionError("ssm: no easy box or no paste re-detect: the cross-validator "
+                                 "was not reached")
+        if not (counts.launches["roi_align"] == n_detects
+                and sum(counts.launches.values()) == n_detects):
+            raise AssertionError(f"ssm: not one K1 per pool detect and re-detect: "
+                                 f"{counts.launches}, {n_detects} detects")
+        if not (abs(state["gamma"] - 0.20) < 1e-12 and np.isfinite(state["clslambda"]).all()):
+            raise AssertionError(f"ssm: gamma {state['gamma']} did not rise by 0.05, or "
+                                 "clslambda is not finite")
+        if not (len(chosen) == P13_BUDGET and set(chosen.tolist()) <= set(pool.unlabeled.tolist())):
+            raise AssertionError(f"ssm: the selection is not the budget: {chosen}")
+        cv = {"easy": sum(easy), "judged": len(easy), "verifications": len(votes),
+              "passed": sum(votes), "redetects": sum(redetects), "detects": n_detects}
+        del model
+    finally:
+        driver._ssm_pool_detections, driver._detect_host_fn = orig["pool"], orig["host"]
+        ssm.judge_uv, ssm.CrossValidator.verify = orig["judge"], orig["verify"]
+
+    # (iii) the SSM-mode detect against the standard one, R50 with spread heads
+    model = build_model(device)
+    ssm_model = copy.copy(model)
+    ssm_model.cfg = dataclasses.replace(model.cfg, box_nms_thresh=0.3, ssm_mode=True)
+    batch = make_pool(BATCH, seed=SEED + 4)[0]
+    images = torch.from_numpy(batch.images).to(device)
+    hw = torch.from_numpy(batch.valid_hw).to(device)
+    times, valid = {"standard": [], "ssm": []}, {}
+    with torch.inference_mode():
+        for name in ("standard", "ssm", "ssm", "standard"):
+            m = model if name == "standard" else ssm_model
+            times[name].append(_warm_ms(lambda: m.detect(images, hw), 5))
+            valid[name] = int(m.detect(images, hw).valid.sum())
+    print(f"ssm time: detect of B={BATCH} on R50 in turns, standard (NMS 0.5, 100 slots) "
+          f"{times['standard']} ms, SSM mode (no pre-NMS filter semantics, NMS 0.3 over 4096 "
+          f"candidates, 300 slots) {times['ssm']} ms; valid detections {valid} on {card}")
+    del model, ssm_model
+    torch.cuda.empty_cache()
+    return {"history": history, "cv": cv, "detect_ms": times, "wall_s": wall}
 
 
 def main() -> int:
@@ -1595,19 +2000,31 @@ def main() -> int:
 
     group_kernel = group_kernel_phase(device, card)
     with tempfile.TemporaryDirectory() as workdir:
-        al = al_loop_phase(device, all_kernels, card, workdir)
-    group_kernel["launches"] = al["launches"]["roi_align_group_fwd"]
-    group_kernel["launches_per_step"] = al["launches"]["roi_align_group_fwd"] / al["steps"]
+        al = al_loop_phase(device, all_kernels, card, os.path.join(workdir, "p11"))
+        group_kernel["launches"] = al["launches"]["roi_align_group_fwd"]
+        group_kernel["launches_per_step"] = al["launches"]["roi_align_group_fwd"] / al["steps"]
 
-    t12 = time.perf_counter()
-    group_pyramid_check(device)
-    with tempfile.TemporaryDirectory() as workdir:
-        group = group_al_phase(device, all_kernels, card, workdir)
-        learn = learnability_phase(device, all_kernels, card, workdir)
-    print(f"phase 12: {time.perf_counter() - t12:.2f} s on {card}")
-    kernel["launches_per_score_call"] = group["launches_per_score_call"]
+        t12 = time.perf_counter()
+        group_pyramid_check(device)
+        group = group_al_phase(device, all_kernels, card, os.path.join(workdir, "p12"))
+        learn = learnability_phase(device, all_kernels, card, os.path.join(workdir, "p12"))
+        print(f"phase 12: {time.perf_counter() - t12:.2f} s on {card}")
+        kernel["launches_per_score_call"] = group["launches_per_score_call"]
+        for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
+            entry["launches_group_norm_per_step"] = group["train_launches"][name] / group["steps"]
+
+        t13 = time.perf_counter()
+        p13 = os.path.join(workdir, "p13")
+        ll4al = ll4al_phase(device, all_kernels, card, p13, al["backbone"])
+        vaal = vaal_phase(device, all_kernels, card, p13, al["backbone"])
+        ssm = ssm_phase(device, all_kernels, card, p13, al["backbone"], learn)
+        print(f"phase 13: {time.perf_counter() - t13:.2f} s on {card}")
+    kernel["launches_ssm"] = {k: ssm["cv"][k] for k in ("detects", "redetects")}
     for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
-        entry["launches_group_norm_per_step"] = group["train_launches"][name] / group["steps"]
+        entry["launches_ll4al"] = {"launches": ll4al["train_launches"][name],
+                                   "joint_steps": ll4al["joint_steps"]}
+        entry["launches_vaal"] = {"launches": vaal["train_launches"][name],
+                                  "task_steps": vaal["task_steps"]}
 
     print(json.dumps({"kernels": [kernel, train_kernels[0], train_kernels[1], group_kernel,
                                   *bneck_kernels]}))

@@ -4,9 +4,12 @@ piece on the CPU: configuration and flags, loader batches, pool bookkeeping
 and random picks, VOC evaluation, evaluation of the tiny detector with
 bridged weights; then the port's own ``al_loop`` on the tiny model
 (``cald``, ``random``, ``--resume``; group norm with 'FCDRGS', ``ltc``,
-``lsc``) and ``cli.main``'s refusal to run on the CPU unasked."""
+``lsc``; ``ssm``, ``ll4al`` and ``vaal``, the last two resumed from a cycle
+checkpoint with their carry-state) and ``cli.main``'s refusal to run on the
+CPU unasked."""
 
 import dataclasses
+import functools
 import hashlib
 import os
 import subprocess
@@ -36,10 +39,12 @@ from cald_tpu_torch.data.pool import ALPoolState
 from cald_tpu_torch.data.synthetic import make_learnable_voc
 from cald_tpu_torch.data.transforms import random_horizontal_flip
 from cald_tpu_torch.data.voc import get_voc2007
+from cald_tpu_torch.engine.checkpoint import load_extra, peek_checkpoint
 from cald_tpu_torch.engine.evaluate import evaluate
 from cald_tpu_torch.engine.voc_eval import voc_evaluate_detections
 from cald_tpu_torch.strategies.cald import labeled_class_counts
 from cald_tpu_torch.strategies.random_strategy import random_select
+from cald_tpu_torch.strategies.vaal import VAALTrainer
 from tests.torch_helpers import tiny_models
 
 BATCH_FIELDS = ("images", "valid_hw", "scale", "boxes", "labels", "box_valid", "image_idx")
@@ -288,7 +293,7 @@ def test_al_loop_random_matches_jax_picks(voc):
 
 
 def test_unported_options_raise(voc):
-    for kw, item in (({"strategy": "vaal"}, 7), ({"model": "retina"}, 8),
+    for kw, item in (({"model": "faster_mobilenet"}, 8), ({"model": "retina"}, 8),
                      ({"score_shrink_slice": True}, 13)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
             driver.al_loop(_cfg(voc["npy"], **kw))
@@ -324,6 +329,94 @@ def test_al_loop_new_options_grow_by_the_budget(voc, kw):
     history = driver.al_loop(_cfg(voc["npy"], **kw))
     assert [h["labeled"] for h in history] == [7, 7]
     assert all(np.isfinite(h["eval"]["mAP"]) for h in history)
+
+
+# VAAL at small widths (the reference's 128..1024 at 256x256 runs on the card)
+SMALL_VAAL = dict(z_dim=16, base_width=8, image_size=64)
+
+
+@pytest.fixture(scope="module", params=["ssm", "ll4al", "vaal"])
+def strategy_run(request, voc, tmp_path_factory):
+    """Three cycles of the tiny model with one strategy (LL4AL's first epoch
+    joint, its second detached), then a run resumed from the cycle_1
+    checkpoint; the trainings of each run are counted."""
+    strategy = request.param
+    out = str(tmp_path_factory.mktemp(f"{strategy}_out"))
+    kw = dict(strategy=strategy, cycles=3, epochs=2, task_epochs=1)
+    trained = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(driver, "VAALTrainer", functools.partial(VAALTrainer, **SMALL_VAAL))
+        for name in ("train_cycle", "_train_cycle_ll4al", "_train_cycle_vaal"):
+            fn = getattr(driver, name)
+            mp.setattr(driver, name, functools.partial(
+                lambda fn, *a, **k: trained.append(k["cycle"]) or fn(*a, **k), fn))
+        full = driver.al_loop(_cfg(voc["npy"], output_dir=out, **kw))
+        trained_full, trained[:] = list(trained), []
+        resumed = driver.al_loop(_cfg(voc["npy"], resume=os.path.join(out, "cycle_1"), **kw))
+    return strategy, out, full, resumed, trained_full, list(trained)
+
+
+def test_al_loop_strategies_grow_by_the_budget(strategy_run):
+    """labeled 4 -> 7 -> 10 (budget 3), a finite mAP per cycle, every cycle
+    trained once."""
+    _, _, full, _, trained, _ = strategy_run
+    assert [h["labeled"] for h in full] == [7, 10, 10]
+    assert all(np.isfinite(h["eval"]["mAP"]) for h in full)
+    assert trained == [0, 1, 2]
+
+
+def test_al_loop_strategies_resume_bit_identical(strategy_run):
+    """Resumed from cycle_1: cycle 1's selection from the restored model and
+    carry-state without retraining it, then cycle 2 trained: labeled sets
+    and cycle 2's evaluation equal the uninterrupted run's bit for bit."""
+    strategy, out, full, resumed, _, trained = strategy_run
+    assert resumed[0] == {"cycle": 0, "resumed": True}
+    assert resumed[1]["eval"] == {"resumed": True}
+    assert trained == [2]
+    for c in (1, 2):
+        assert resumed[c]["labeled_digest"] == full[c]["labeled_digest"], c
+    assert resumed[2]["eval"] == full[2]["eval"]
+    carry = load_extra(os.path.join(out, "cycle_1"))
+    meta = peek_checkpoint(os.path.join(out, "cycle_1"))[2]
+    want = {"ssm": set(), "ll4al": {"ll_params"}, "vaal": {"vaal_vae", "vaal_d"}}[strategy]
+    assert set(carry) == want
+    # SSM's adapted thresholds ride in meta from cycle 1 on (cycle 0 adapted them)
+    assert ("ssm_gamma" in meta) == (strategy == "ssm")
+    if strategy == "ssm":
+        assert meta["ssm_gamma"] == pytest.approx(0.2)
+        assert np.isfinite(np.asarray(meta["ssm_clslambda"])).all()
+
+
+def test_al_loop_resume_without_carry_retrains(voc, tmp_path):
+    """An ll4al checkpoint without ``extra`` (as one from the cald strategy):
+    the cycle is retrained, and its selection is the uninterrupted run's."""
+    out = str(tmp_path / "out")
+    kw = dict(strategy="ll4al", cycles=2, task_epochs=0)
+    full = driver.al_loop(_cfg(voc["npy"], output_dir=out, **kw))
+    ckpt = os.path.join(out, "cycle_0")
+    al = torch.load(os.path.join(ckpt, "al.pt"), weights_only=True)
+    torch.save({**al, "extra": {}}, os.path.join(ckpt, "al.pt"))
+    resumed = driver.al_loop(_cfg(voc["npy"], resume=ckpt, **kw))
+    assert resumed[0]["eval"] == full[0]["eval"]
+    assert resumed[0]["labeled_digest"] == full[0]["labeled_digest"]
+
+
+def test_skip_runs_vaal_adversary_alone_and_refuses_ll4al(voc, tmp_path, monkeypatch):
+    """--skip with vaal loads the first-cycle model and runs the adversary
+    epochs alone (the reference's --skip path); with ll4al it raises
+    ValueError, the checkpoint holding no LossNet."""
+    monkeypatch.setattr(driver, "VAALTrainer", functools.partial(VAALTrainer, **SMALL_VAAL))
+    kw = dict(strategy="vaal", cycles=1, epochs=2, first_checkpoint_path=str(tmp_path))
+    trained = driver.al_loop(_cfg(voc["npy"], **kw))
+    epochs = []
+    adversary = driver._vaal_adversary_epoch
+    monkeypatch.setattr(driver, "_vaal_adversary_epoch",
+                        lambda *a, **k: epochs.append(k["epoch"]) or adversary(*a, **k))
+    monkeypatch.setattr(driver, "_train_cycle_vaal", None)      # must not train
+    skipped = driver.al_loop(_cfg(voc["npy"], skip=True, **kw))
+    assert skipped[0]["eval"] == trained[0]["eval"] and epochs == [0, 1]
+    with pytest.raises(ValueError, match="--skip with ll4al"):
+        driver.al_loop(_cfg(voc["npy"], skip=True, **{**kw, "strategy": "ll4al"}))
 
 
 @pytest.mark.parametrize("strategy", ["ltc", "lsc"])

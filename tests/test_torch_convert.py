@@ -6,11 +6,17 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from cald_tpu_torch.convert.from_flax import flax_to_state_dict
+from cald_tpu.models.lossnet import LossNet as JLossNet
+from cald_tpu.models.vae import VAAL_VAE as JVAE
+from cald_tpu.models.vae import VAALDiscriminator as JDisc
+from cald_tpu_torch.convert.from_flax import VAE_TRANSPOSED, flax_to_state_dict, module_state_dict
+from cald_tpu_torch.models.lossnet import LossNet
+from cald_tpu_torch.models.vae import VAAL_VAE, VAALDiscriminator
 from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
 from tests.torch_helpers import TINY, tiny_models
 
@@ -60,12 +66,65 @@ def test_unexpected_input_raises(bridged, bad):
         flax_to_state_dict(broken)
 
 
-# the modules of the AL loop (slice 4), each of which must import on its own
+def _flax_modules():
+    """(name, Flax module, its params as numpy, the port's module) for
+    LossNet, the VAE (small widths) and the discriminator, initialised by
+    Flax."""
+    feats = [jnp.zeros((1, 8, 8, 16)), jnp.zeros((1, 4, 4, 16))]
+    x = jnp.zeros((1, 64, 64, 3))
+    out = []
+    for name, jm, args, tm in (
+            ("lossnet", JLossNet(num_levels=2, interm_dim=8), (feats,),
+             LossNet(num_levels=2, interm_dim=8, in_channels=16)),
+            ("vae", JVAE(z_dim=16, base_width=8, start_hw=2), (x, jax.random.key(1)),
+             VAAL_VAE(z_dim=16, base_width=8, start_hw=2)),
+            ("disc", JDisc(), (jnp.zeros((1, 16)),), VAALDiscriminator(z_dim=16))):
+        params = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.key(0), *args)["params"])
+        out.append((name, jm, params, tm))
+    return out
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["lossnet", "vae", "disc"])
+def test_module_bridge_fills_every_parameter(which):
+    """Every Flax leaf lands on a port parameter of the same size, strict."""
+    _, _, params, tm = _flax_modules()[which]
+    sd = module_state_dict(params, transposed=VAE_TRANSPOSED)
+    n_leaves = len(jax.tree.leaves(params))
+    assert len(sd) == n_leaves == len(tm.state_dict())
+    tm.load_state_dict(sd, strict=True)
+    for k, v in tm.state_dict().items():
+        assert v.shape == sd[k].shape, k
+
+
+def test_jax_initialized_vae_gives_the_same_recon():
+    """A Flax-initialised VAE through the bridge: the same reconstruction
+    (atol 5e-5) with the same normals, which pins the transposed
+    convolutions' kernel flip and the NHWC flatten of the fc layers."""
+    _, jv, params, tv = _flax_modules()[1]
+    x = np.random.default_rng(3).uniform(0, 255, (2, 64, 64, 3)).astype(np.float32)
+    key = jax.random.key(9)
+    recon, _, mu, _ = jv.apply({"params": params}, x, key)
+    eps = np.array(jax.random.normal(key, mu.shape))
+    tv.load_state_dict(module_state_dict(params, transposed=VAE_TRANSPOSED), strict=True)
+    got = tv(torch.from_numpy(x), torch.from_numpy(eps))[0]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(recon), atol=5e-5)
+    # without the flip the transposed convolutions compute something else
+    unflipped = module_state_dict(params)
+    for i in range(5):
+        unflipped[f"dec{i}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(params[f"dec{i}"]["kernel"]).transpose(2, 3, 0, 1)))
+    tv.load_state_dict(unflipped, strict=True)
+    bad = tv(torch.from_numpy(x), torch.from_numpy(eps))[0]
+    assert np.abs(bad.detach().numpy() - np.asarray(recon)).max() > 1e-2
+
+
+# the modules of the AL loop and its strategies, each of which must import on its own
 AL_LOOP_MODULES = (
     "cli.config", "cli.driver", "cli.main", "convert.torchvision_import", "data.batching",
     "data.loader", "data.pool", "data.records", "data.synthetic", "data.transforms",
     "data.voc", "engine.checkpoint", "engine.evaluate", "engine.voc_eval", "models.init",
-    "strategies.random_strategy")
+    "models.lossnet", "models.vae", "strategies.ll4al", "strategies.random_strategy",
+    "strategies.ssm", "strategies.vaal")
 
 
 def test_port_imports_no_jax():
@@ -86,7 +145,8 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.split())
-    assert len(loaded) >= 53          # scoring, training, the fused backbone, the AL loop
+    # scoring, training, the fused backbone, the AL loop and its strategies
+    assert len(loaded) >= 58
     assert {f"cald_tpu_torch.{m}" for m in AL_LOOP_MODULES} <= loaded
 
 
