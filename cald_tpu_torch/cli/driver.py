@@ -1,6 +1,10 @@
-"""The active-learning cycle driver (port of ``cald_tpu/cli/driver.py`` for
-Faster R-CNN with every strategy: ``cald``, ``random``, ``ltc``, ``lsc``,
-``ssm``, ``ll4al`` and ``vaal``; frozen or group norms).
+"""The active-learning cycle driver (port of ``cald_tpu/cli/driver.py``):
+every ``--model`` of the JAX package (``faster``, Faster R-CNN ResNet-50-FPN
+or its ``--tiny`` miniature; ``retina``, RetinaNet ResNet-50-FPN or its
+``--tiny`` miniature; ``faster_mobilenet``, Faster R-CNN MobileNetV3-Large-FPN;
+``retina_mobilenet``, single-level RetinaNet MobileNetV3-Large) with every
+strategy: ``cald``, ``random``, ``ltc``, ``lsc``, ``ssm``, ``ll4al`` and
+``vaal``; frozen or group norms.
 
 Cycle structure (the reference's):
     for cycle: train a fresh detector on the labeled set -> evaluate ->
@@ -42,9 +46,10 @@ where one is given; LossNet is initialised from ``seed + 1``, and cycle k's
 VAE and discriminator from ``seed + k`` and ``seed + k + 1`` (Flax's
 initial distributions, ``models/init.py::lecun_init_``).
 
-Not ported yet (they raise ``NotImplementedError``): the models other than
-Faster R-CNN (ROADMAP queue 1 item 8), COCO (item 9), the multi-process
-branches (item 11) and ``--score-shrink-slice`` (item 13).
+Not ported yet (they raise ``NotImplementedError`` before any work): COCO
+(ROADMAP queue 1 item 5), the multi-process launch (item 6: ``WORLD_SIZE``
+above 1, or the JAX package's ``JAX_COORDINATOR_ADDRESS`` or
+``CALD_TPU_DISTRIBUTED=1``) and ``--score-shrink-slice`` (item 8).
 
 Known differences: ``--pretrained-backbone`` with ``--norm group`` raises
 ``ValueError`` before any work. The JAX package fails too, later and with
@@ -68,7 +73,7 @@ import torch
 
 from cald_tpu_torch.augment.suite import expand_aug_string, generator_draw
 from cald_tpu_torch.cli.config import ALConfig
-from cald_tpu_torch.convert.torchvision_import import load_backbone_
+from cald_tpu_torch.convert.torchvision_import import load_backbone_, load_state_dict
 from cald_tpu_torch.data.batching import (
     create_aspect_ratio_groups, default_canvases, grouped_batch_indices, make_padded_batch,
 )
@@ -88,6 +93,9 @@ from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
 from cald_tpu_torch.models.init import lecun_init_, random_init_
 from cald_tpu_torch.models.lossnet import LossNet
 from cald_tpu_torch.models.matcher import generator_gumbel
+from cald_tpu_torch.models.retinanet import (
+    RetinaNet, RetinaNetConfig, retinanet_mobilenet, retinanet_resnet50_fpn_cal,
+)
 from cald_tpu_torch.strategies.cald import (
     CALDConfig, cald_select, labeled_class_counts, make_cald_score_fn, score_pool,
 )
@@ -101,6 +109,8 @@ from cald_tpu_torch.strategies.ssm import CrossValidator, SSMConfig, ssm_select
 from cald_tpu_torch.strategies.vaal import VAALTrainer, vaal_select
 
 STRATEGIES = ("cald", "random", "ltc", "lsc", "ssm", "ll4al", "vaal")
+MODELS = ("faster", "retina", "faster_mobilenet", "retina_mobilenet")
+Detector = FasterRCNN | RetinaNet
 
 
 def stream_generator(device: torch.device, a: int, b: int) -> torch.Generator:
@@ -116,12 +126,18 @@ def _check_supported(cfg: ALConfig):
     import into."""
     if cfg.strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
-    if cfg.model != "faster":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
+    if cfg.model not in MODELS:
+        raise ValueError(f"unknown model {cfg.model!r}")
+    if "coco" in cfg.dataset:
+        raise NotImplementedError("COCO is not ported yet (ROADMAP queue 1 item 5)")
     if cfg.score_shrink_slice:
         raise NotImplementedError("--score-shrink-slice is not ported yet "
-                                  "(ROADMAP queue 1 item 13)")
+                                  "(ROADMAP queue 1 item 8)")
+    if (int(os.environ.get("WORLD_SIZE", "1") or 1) > 1
+            or os.environ.get("JAX_COORDINATOR_ADDRESS")
+            or os.environ.get("CALD_TPU_DISTRIBUTED") == "1"):
+        raise NotImplementedError("multi-process runs are not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
     if cfg.norm == "group" and cfg.pretrained_backbone:
         raise ValueError("--pretrained-backbone imports FrozenBatchNorm statistics; "
                          "a --norm group backbone has none")
@@ -133,26 +149,40 @@ def build_datasets(cfg: ALConfig):
     if cfg.dataset == "voc2012":
         return get_voc2012(cfg.data_path, "trainval"), get_voc2012(cfg.data_path, "val")
     if "coco" in cfg.dataset:
-        raise NotImplementedError("COCO is not ported yet (ROADMAP queue 1 item 9)")
+        raise NotImplementedError("COCO is not ported yet (ROADMAP queue 1 item 5)")
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
 def build_model(cfg: ALConfig, num_classes: int):
     """Returns (model, frozen parameter-name prefixes); the weights are
-    zeros until ``_fresh_state`` initialises them. Nothing is frozen under
-    group norm or in the tiny model."""
-    if cfg.model != "faster":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
-    if cfg.tiny:
-        mcfg = FasterRCNNConfig(num_classes=num_classes, backbone="tiny", norm=cfg.norm,
-                                rpn_pre_nms_top_n_train=128, rpn_pre_nms_top_n_test=128,
-                                rpn_post_nms_top_n_train=64, rpn_post_nms_top_n_test=64,
-                                rpn_batch_size_per_image=32, box_batch_size_per_image=32,
-                                detections_per_img=16, representation_size=64)
-        return FasterRCNN(mcfg), ()
-    frozen = RESNET_FROZEN_L3 if cfg.norm == "frozen" else ()
-    return FasterRCNN(FasterRCNNConfig(num_classes=num_classes, norm=cfg.norm)), frozen
+    zeros until ``_fresh_state`` initialises them. The ResNet-50 models
+    freeze conv1 and layer1 under frozen norms; nothing is frozen under
+    group norm, in the tiny models or in the MobileNet models (``--tiny``
+    shrinks ``faster`` and ``retina`` only, as in the JAX package)."""
+    frozen = RESNET_FROZEN_L3 if (cfg.norm == "frozen" and not cfg.tiny) else ()
+    if cfg.model == "faster":
+        if cfg.tiny:
+            return FasterRCNN(FasterRCNNConfig(
+                num_classes=num_classes, backbone="tiny", norm=cfg.norm,
+                rpn_pre_nms_top_n_train=128, rpn_pre_nms_top_n_test=128,
+                rpn_post_nms_top_n_train=64, rpn_post_nms_top_n_test=64,
+                rpn_batch_size_per_image=32, box_batch_size_per_image=32,
+                detections_per_img=16, representation_size=64)), ()
+        return FasterRCNN(FasterRCNNConfig(num_classes=num_classes, norm=cfg.norm)), frozen
+    if cfg.model == "faster_mobilenet":
+        return FasterRCNN(FasterRCNNConfig(num_classes=num_classes, backbone="mobilenetv3",
+                                           norm=cfg.norm,
+                                           anchor_sizes=((32, 64, 128, 256, 512),))), ()
+    if cfg.model == "retina":
+        if cfg.tiny:
+            return RetinaNet(RetinaNetConfig(
+                num_classes=num_classes, backbone="tiny", norm=cfg.norm,
+                detections_per_img=16, topk_candidates=64,
+                anchor_sizes=((16, 20),) * 5)), ()
+        return retinanet_resnet50_fpn_cal(num_classes, norm=cfg.norm), frozen
+    if cfg.model == "retina_mobilenet":
+        return retinanet_mobilenet(num_classes, norm=cfg.norm), ()
+    raise ValueError(f"unknown model {cfg.model!r}")
 
 
 def _loaders(cfg: ALConfig, dataset, indices, *, batch_size, train: bool, canvases,
@@ -166,14 +196,13 @@ def _loaders(cfg: ALConfig, dataset, indices, *, batch_size, train: bool, canvas
         num_workers=cfg.workers, seed=seed)
 
 
-def _apply_pretrained_backbone(model: FasterRCNN, cfg: ALConfig):
+def _apply_pretrained_backbone(model, cfg: ALConfig):
     """Load the torchvision-layout backbone ``state_dict`` of
-    ``--pretrained-backbone`` into a fresh model (the reference's
-    ``pretrained_backbone=True``); the reference rebuilds the model every
-    cycle, so this runs every cycle."""
+    ``--pretrained-backbone`` (``.npz``, ``.npy`` or a ``torch.load`` file)
+    into a fresh model (the reference's ``pretrained_backbone=True``); the
+    reference rebuilds the model every cycle, so this runs every cycle."""
     if cfg.pretrained_backbone:
-        sd = torch.load(cfg.pretrained_backbone, map_location="cpu", weights_only=True)
-        load_backbone_(model, sd)
+        load_backbone_(model, load_state_dict(cfg.pretrained_backbone))
 
 
 def _steps_per_epoch(cfg: ALConfig, dataset, pool: ALPoolState, canvases, group_ids, *,
@@ -236,8 +265,13 @@ def train_cycle(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, can
     return model, optimizer, scheduler
 
 
-def _new_lossnet(model: FasterRCNN, cfg: ALConfig, device) -> LossNet:
-    lossnet = LossNet(num_levels=4, in_channels=model.cfg.fpn_channels)
+def _new_lossnet(model, cfg: ALConfig, device) -> LossNet:
+    """LossNet over the first 4 levels of the model's pyramid (the JAX
+    package's ``LossNet(num_levels=4)``, whose Dense layers take what they
+    are given): P2..P5, RetinaNet's P3..P6, MobileNet Faster R-CNN's 3
+    levels, the single level of ``retina_mobilenet``."""
+    lossnet = LossNet(num_levels=min(4, len(model.cfg.strides)),
+                      in_channels=model.cfg.fpn_channels)
     lecun_init_(lossnet, cfg.seed + 1)
     return lossnet.to(device)
 
@@ -321,7 +355,7 @@ def _train_cycle_vaal(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolStat
     return model, optimizer, scheduler, trainer
 
 
-def _detect_host_fn(cfg: ALConfig, model: FasterRCNN, canvases, device):
+def _detect_host_fn(cfg: ALConfig, model: Detector, canvases, device):
     """fn(list of (H, W, 3) arrays) -> per-image dicts (``boxes``,
     ``scores``, ``labels``) in the images' own coordinates: SSM's
     cross-validation re-detect, one image at a time on the first canvas."""
@@ -347,7 +381,7 @@ def _detect_host_fn(cfg: ALConfig, model: FasterRCNN, canvases, device):
     return run
 
 
-def _ssm_pool_detections(model: FasterRCNN, loader, scfg: SSMConfig, device) -> dict[int, dict]:
+def _ssm_pool_detections(model: Detector, loader, scfg: SSMConfig, device) -> dict[int, dict]:
     """One batched pass over the pool collecting SSM's per-image inputs:
     boxes (original coordinates), foreground score rows, and the
     low-confidence ``al`` flag (frcnn_ssm.py:60,71-74)."""
@@ -369,26 +403,40 @@ def _ssm_pool_detections(model: FasterRCNN, loader, scfg: SSMConfig, device) -> 
     return out
 
 
-def _scoring_model(cfg: ALConfig, model: FasterRCNN) -> FasterRCNN:
-    """The pool-scoring variant with smaller RPN candidate counts (capped at
-    the model's own); ``score_rpn_post_nms`` 0, the default, scores with the
-    model itself. The variant shares the model's weights."""
+def _variant(model, **changes):
+    """A shallow copy of ``model`` (the same weights) with its config
+    changed."""
+    variant = copy.copy(model)
+    variant.cfg = dataclasses.replace(model.cfg, **changes)
+    return variant
+
+
+def _scoring_model(cfg: ALConfig, model):
+    """The pool-scoring variant with fewer candidates (capped at the model's
+    own): Faster R-CNN's RPN pre/post-NMS counts, RetinaNet's per-level
+    ``topk_candidates`` trimmed to ``--score-rpn-post-nms``.
+    ``score_rpn_post_nms`` 0, the default, scores with the model itself. The
+    variant shares the model's weights."""
     if not cfg.score_rpn_post_nms:
         return model
+    if isinstance(model, RetinaNet):
+        topk = min(cfg.score_rpn_post_nms, model.cfg.topk_candidates)
+        if topk == model.cfg.topk_candidates:
+            return model
+        return _variant(model, topk_candidates=topk)
     pre = min(cfg.score_rpn_pre_nms or 10 ** 9, model.cfg.rpn_pre_nms_top_n_test)
     post = min(cfg.score_rpn_post_nms, model.cfg.rpn_post_nms_top_n_test)
     if (pre, post) == (model.cfg.rpn_pre_nms_top_n_test, model.cfg.rpn_post_nms_top_n_test):
         return model
-    variant = copy.copy(model)
-    variant.cfg = dataclasses.replace(model.cfg, rpn_pre_nms_top_n_test=pre,
-                                      rpn_post_nms_top_n_test=post)
-    return variant
+    return _variant(model, rpn_pre_nms_top_n_test=pre, rpn_post_nms_top_n_test=post)
 
 
-def _ssm_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolState, subset, loader,
+def _ssm_select(cfg: ALConfig, model: Detector, dataset, pool: ALPoolState, subset, loader,
                 canvases, rng: np.random.Generator, strategy_state: dict, device) -> np.ndarray:
     """SSM's two stages over ``subset``: the pool detected by the SSM variant
-    of ``model`` (its postprocess; RPN counts and weights shared), then the
+    of ``model`` (Faster R-CNN: its SSM postprocess, RPN counts and weights
+    shared; RetinaNet: NMS at SSM's 0.3 through its standard postprocess,
+    as in the JAX package), then the
     host selection whose easy single-class boxes are pasted into labeled
     images and re-detected by ``model``. Adapts gamma and clslambda in
     ``strategy_state``; returns positions into ``subset``."""
@@ -396,9 +444,10 @@ def _ssm_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolState, su
     gamma = strategy_state.setdefault("gamma", scfg.gamma)
     clslambda = strategy_state.setdefault("clslambda",
                                           np.full(cfg.num_classes - 1, np.log(2.0)))
-    ssm_model = copy.copy(model)
-    ssm_model.cfg = dataclasses.replace(model.cfg, box_nms_thresh=scfg.nms_thresh,
-                                        ssm_mode=True)
+    if isinstance(model, RetinaNet):
+        ssm_model = _variant(model, nms_thresh=scfg.nms_thresh)
+    else:
+        ssm_model = _variant(model, box_nms_thresh=scfg.nms_thresh, ssm_mode=True)
     by_idx = _ssm_pool_detections(ssm_model, loader, scfg, device)
     pool_dets = [by_idx[int(idx)] for idx in subset]
 
@@ -419,7 +468,7 @@ def _ssm_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolState, su
     return chosen
 
 
-def score_and_select(cfg: ALConfig, model: FasterRCNN, dataset, pool: ALPoolState, canvases,
+def score_and_select(cfg: ALConfig, model: Detector, dataset, pool: ALPoolState, canvases,
                      group_ids, *, cycle: int, device,
                      strategy_state: dict | None = None) -> np.ndarray:
     """Dispatch on ``cfg.strategy``; returns the chosen DATASET indices.

@@ -1,5 +1,5 @@
-"""The weight bridge: the JAX package's Faster R-CNN variables -> the port's
-``state_dict``.
+"""The weight bridge: the JAX package's detector variables (Faster R-CNN on
+ResNet or MobileNetV3, RetinaNet) -> the port's ``state_dict``.
 
 Input is the Flax ``{"params": ..., "frozen": ...}`` tree with numpy (or any
 array-like) leaves; nothing of JAX is imported. Conv kernels go from HWIO to
@@ -7,8 +7,11 @@ OIHW, Dense kernels from (in, out) to (out, in), FrozenBN ``scale``/``bias``/
 ``mean``/``var`` carry across, and a GroupNorm's ``params`` ``scale`` becomes
 its ``weight``. Module paths are the same in both packages except the Flax
 auto-named norms (``FrozenBatchNorm_i`` or ``GroupNorm_i``), which take
-torchvision's names. Every leaf is consumed exactly once; a leaf left over
-raises.
+torchvision's names in a ResNet and ``{conv}_bn`` in a MobileNetV3 (the
+i-th norm of a ``block{j}`` follows its i-th conv of ``expand``,
+``depthwise``, ``project``; the trunk's two follow ``stem`` and
+``lastconv``). A depthwise kernel (k, k, 1, E) becomes (E, 1, k, k) like any
+other. Every leaf is consumed exactly once; a leaf left over raises.
 
 Any tree shaped like the params collection maps the same way with
 ``flax_to_state_dict({"params": tree})``: the JAX package's gradients
@@ -30,6 +33,9 @@ import torch
 _BACKBONE_NORMS = ("bn1",)
 _BLOCK_NORMS = ("bn1", "bn2", "bn3", "downsample_bn")
 _BLOCK = re.compile(r"layer\d+_\d+$")
+_MOBILE_BLOCK = re.compile(r"block\d+$")
+_MOBILE_CONVS = ("expand", "depthwise", "project")
+_MOBILE_TRUNK_NORMS = ("stem_bn", "lastconv_bn")
 _NORM = re.compile(r"(FrozenBatchNorm|GroupNorm)_(\d+)$")
 
 
@@ -41,19 +47,33 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def _module_path(path: tuple) -> str:
+def _norm_table(parent: tuple, params: Mapping) -> tuple[str, ...]:
+    """The port's names of the auto-named norms under ``parent``, in Flax's
+    index order."""
+    node = params
+    for name in parent:
+        node = node.get(name, {})
+    if parent and _MOBILE_BLOCK.match(parent[-1]):
+        return tuple(f"{c}_bn" for c in _MOBILE_CONVS if c in node)
+    if "stem" in node:
+        return _MOBILE_TRUNK_NORMS
+    if parent and _BLOCK.match(parent[-1]):
+        return _BLOCK_NORMS
+    return _BACKBONE_NORMS
+
+
+def _module_path(path: tuple, params: Mapping) -> str:
     names = list(path)
     for i, name in enumerate(names):
         m = _NORM.match(name)
         if m:
-            table = _BLOCK_NORMS if i and _BLOCK.match(names[i - 1]) else _BACKBONE_NORMS
-            names[i] = table[int(m.group(2))]
+            names[i] = _norm_table(tuple(path[:i]), params)[int(m.group(2))]
     return ".".join(names)
 
 
 def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
-    """Map the Flax variables of ``cald_tpu``'s ``FasterRCNN`` to a state_dict
-    for ``cald_tpu_torch.models.faster_rcnn.FasterRCNN`` (float32 tensors)."""
+    """Map the Flax variables of a ``cald_tpu`` detector (``FasterRCNN``,
+    ``RetinaNet``) to a state_dict for its port (float32 tensors)."""
     unknown = set(variables) - {"params", "frozen"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
@@ -76,7 +96,7 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
                                       ("frozen", "bias"), ("frozen", "mean"),
                                       ("frozen", "var")}:
                 raise ValueError(f"unexpected leaf {coll}/{'/'.join(path)}")
-            key = f"{_module_path(tuple(mod))}.{name}"
+            key = f"{_module_path(tuple(mod), variables.get('params', {}))}.{name}"
             if key in out:
                 raise ValueError(f"two Flax leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))

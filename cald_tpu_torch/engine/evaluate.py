@@ -41,7 +41,7 @@ def evaluate(model, loader, dataset, *, kind: str, device, print_fn=print) -> di
     """kind: 'voc' ('coco' is not ported yet). Returns the evaluator's
     metric dict."""
     if kind == "coco":
-        raise NotImplementedError("COCO evaluation is not ported yet (ROADMAP queue 1 item 9)")
+        raise NotImplementedError("COCO evaluation is not ported yet (ROADMAP queue 1 item 5)")
     if kind != "voc":
         raise ValueError(f"unknown eval kind {kind!r}")
     results = run_inference(model, loader, device=device)

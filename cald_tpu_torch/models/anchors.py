@@ -10,7 +10,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-FRCNN_SIZES = ((32,), (64,), (128,), (256,), (512,))
+# the reference's anchor schedules
+FRCNN_SIZES = ((32,), (64,), (128,), (256,), (512,))                 # frcnn_la.py:186-190
+RETINA_SIZES = tuple(tuple(x * 2 ** (i / 3) for i in range(3))
+                     for x in (32, 64, 128, 256, 512))             # retinanet_cal.py:347
+MOBILE_RETINA_SIZES = ((16, 32, 64, 128, 256),)                    # retinanet_cal.py:663
 ASPECT_RATIOS = (0.5, 1.0, 2.0)
 
 
@@ -40,7 +44,10 @@ def generate_anchors(feat_shapes: Sequence[tuple[int, int]], strides: Sequence[i
                      sizes_per_level: Sequence[Sequence[float]],
                      aspect_ratios: Sequence[float], device=None):
     """Anchors for a whole pyramid: (sum_l H_l*W_l*A, 4) float32 tensor and
-    the per-level counts."""
+    the per-level counts. A schedule of one size tuple is shared by every
+    level."""
+    if len(sizes_per_level) != len(feat_shapes):
+        sizes_per_level = [sizes_per_level[0]] * len(feat_shapes)
     per_level = [grid_anchors_for_level(h, w, st, sz, aspect_ratios)
                  for (h, w), st, sz in zip(feat_shapes, strides, sizes_per_level)]
     counts = [len(a) for a in per_level]

@@ -12,6 +12,11 @@ sends ``detect`` through the window forward instead (K2, or K4 under
 ``CALD_TPU_ROI_GROUP``; float32 output), as the JAX package's ``detect``.
 ``detect`` lets the backbone run its opt-in fused bottlenecks (K5/K6,
 ``CALD_TPU_PALLAS_BNECK``); ``loss`` never does.
+
+Backbones: ResNet-50 (``resnet50``, FPN on C2..C5, RoIAlign on P2..P5),
+its ``tiny`` miniature, and MobileNetV3-Large (``mobilenetv3``, FPN on its
+two stride-32 maps C4 and C5, RoIAlign on both: every roi maps to the first,
+as torchvision's level mapper does for two equal scales).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from cald_tpu_torch.models.anchors import ASPECT_RATIOS, FRCNN_SIZES, generate_a
 from cald_tpu_torch.models.detections import Detections
 from cald_tpu_torch.models.fpn import FPN
 from cald_tpu_torch.models.matcher import Draw
+from cald_tpu_torch.models.mobilenetv3 import MobileNetV3Backbone
 from cald_tpu_torch.models.resnet import ResNetBackbone
 from cald_tpu_torch.models.roi_heads import (
     FastRCNNPredictor, TwoMLPHead, fastrcnn_loss, pool_box_features,
@@ -40,7 +46,11 @@ from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel, window_roi_align
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
+# ResNet backbones: (blocks per stage, width)
 BACKBONES = {"resnet50": ((3, 4, 6, 3), 64), "tiny": ((1, 1, 1, 1), 16)}
+# the FPN inputs of each backbone
+RESNET_KEYS = ("c2", "c3", "c4", "c5")
+MOBILENET_KEYS = ("c4", "c5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +59,7 @@ class FasterRCNNConfig:
     defaults)."""
 
     num_classes: int = 21
-    backbone: str = "resnet50"          # resnet50 | tiny
+    backbone: str = "resnet50"          # resnet50 | tiny | mobilenetv3
     norm: str = "frozen"                # the backbone's norms: frozen | group
     # conv/matmul compute dtype; box decoding, NMS and scores stay float32
     compute_dtype: str = "bfloat16"
@@ -78,7 +88,11 @@ class FasterRCNNConfig:
     ssm_mode: bool = False
     ssm_out_slots: int = 300
 
-    strides = (4, 8, 16, 32, 64)
+    @property
+    def strides(self) -> tuple[int, ...]:
+        if self.backbone == "mobilenetv3":
+            return (32, 32, 64)
+        return (4, 8, 16, 32, 64)
 
     @property
     def roi_levels(self) -> int:
@@ -93,16 +107,34 @@ def _valid_mask(h: int, w: int, valid_hw: torch.Tensor, dtype) -> torch.Tensor:
     return (rows[:, :, None] & cols[:, None, :]).to(dtype)[..., None]
 
 
+def normalized_input(images: torch.Tensor, valid_hw: torch.Tensor, mean: torch.Tensor,
+                     std: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """Raw NHWC canvas pixels -> the backbone's NCHW channels-last input:
+    ImageNet-normalized, cast to ``dtype``, with the canvas padding zeroed in
+    NORMALIZED space, as the reference normalizes each image first and
+    zero-pads the batch after."""
+    x = (images / 255.0 - mean) / std
+    if dtype is not None:
+        x = x.to(dtype)
+    x = x * _valid_mask(images.shape[1], images.shape[2], valid_hw, x.dtype)
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
 class FasterRCNN(nn.Module):
     def __init__(self, cfg: FasterRCNNConfig):
         super().__init__()
-        if cfg.backbone not in BACKBONES:
-            raise ValueError(f"unknown backbone {cfg.backbone!r}")
         self.cfg = cfg
         dt = None if cfg.compute_dtype == "float32" else getattr(torch, cfg.compute_dtype)
         self.dtype = dt
-        blocks, width = BACKBONES[cfg.backbone]
-        self.backbone = ResNetBackbone(blocks, width, dtype=dt, norm=cfg.norm)
+        if cfg.backbone == "mobilenetv3":
+            self.feat_keys = MOBILENET_KEYS
+            self.backbone = MobileNetV3Backbone(MOBILENET_KEYS, norm=cfg.norm, dtype=dt)
+        elif cfg.backbone in BACKBONES:
+            self.feat_keys = RESNET_KEYS
+            blocks, width = BACKBONES[cfg.backbone]
+            self.backbone = ResNetBackbone(blocks, width, dtype=dt, norm=cfg.norm)
+        else:
+            raise ValueError(f"unknown backbone {cfg.backbone!r}")
         self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, dtype=dt)
         a_per_cell = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
         self.rpn_head = RPNHead(a_per_cell, cfg.fpn_channels, dtype=dt)
@@ -118,18 +150,13 @@ class FasterRCNN(nn.Module):
 
     def features(self, images: torch.Tensor, valid_hw: torch.Tensor, *,
                  allow_fused: bool = False) -> list[torch.Tensor]:
-        """FPN pyramid, NCHW channels-last tensors, finest first (P2..P6).
+        """FPN pyramid, NCHW channels-last tensors, finest first (P2..P6, or
+        MobileNet's two stride-32 levels and their pooled extra).
         ``allow_fused`` lets the backbone's opt-in fused bottlenecks run
         (inference only: they have no backward)."""
-        x = (images / 255.0 - self.pixel_mean) / self.pixel_std
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        # zero the canvas padding in NORMALIZED space, as the reference
-        # normalizes each image first and zero-pads the batch after
-        x = x * _valid_mask(images.shape[1], images.shape[2], valid_hw, x.dtype)
-        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        x = normalized_input(images, valid_hw, self.pixel_mean, self.pixel_std, self.dtype)
         feats = self.backbone(x, allow_fused=allow_fused)
-        return self.fpn([feats[k] for k in ("c2", "c3", "c4", "c5")])
+        return self.fpn([feats[k] for k in self.feat_keys])
 
     def _anchors(self, pyramid, device):
         cfg = self.cfg

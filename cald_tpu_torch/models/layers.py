@@ -16,21 +16,26 @@ from torch import nn
 
 
 class Conv(nn.Module):
-    """2-D convolution on NCHW tensors with explicit symmetric padding."""
+    """2-D convolution on NCHW tensors with explicit symmetric padding;
+    ``groups`` as Flax's ``feature_group_count`` (``in_ch`` for a depthwise
+    convolution)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
-                 padding: int = 0, bias: bool = True, dtype: torch.dtype | None = None):
+                 padding: int = 0, bias: bool = True, groups: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         self.stride = stride
         self.padding = padding
+        self.groups = groups
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, 1,
+                        self.groups)
 
 
 class Dense(nn.Module):

@@ -2,7 +2,7 @@
 ``cald_tpu/strategies/ll4al.py``; reference ll_train.py).
 
 Joint training: the detector produces per-image loss vectors
-(``FasterRCNN.loss(per_image=True)``) whose sum is the target of a LossNet
+(``model.loss(per_image=True)``) whose sum is the target of a LossNet
 ranking head over the FPN features; after ``task_epochs`` the features
 feeding LossNet are detached (ll_train.py:90-95). Scoring = LossNet
 prediction on the pool; selection = top-budget, descending

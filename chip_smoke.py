@@ -109,10 +109,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
      configuration on the card (tiny, group norms, 32 learnable 96x128
      images, 30 epochs, lr 0.005, steps 20/26): per-class AP50 > 0.7 for
      aeroplane, bicycle and bird and their mean > 0.85, with its wall time.
+ 13. LL4AL, VAAL and SSM: ``al_loop`` with each at phase 11's data and cut
+     from phase 11's backbone (``ll4al_phase``, ``vaal_phase``,
+     ``ssm_phase``: their docstrings list the checks);
+ 14. the other models, at phase 11's data and cut (2 cycles of 1 epoch,
+     16 initial images, budget 8, score batch 8, bf16, frozen norms), each
+     run checked for finite losses, the labeled set grown by the budget, a
+     finite mAP, ``cycle_0/`` read back by ``--resume`` and valid slots of
+     a detect from it labelled 1..20: (a) RetinaNet R50-FPN (21 classes, 9
+     anchors a cell on P3-P7) from phase 11's backbone with CALD: its f32
+     pyramid and head on the GPU against the CPU (1e-3), no RoI kernel, a
+     warm training step at B=4, the CALD score call at B=8 on the 640x1024
+     canvas (5 warm calls, peak memory) with the trained heads and with
+     every anchor a candidate, and the latter's detect split into convs,
+     postprocess and NMS; (b) RetinaNet with SSM (its NMS-0.3 detect
+     against the standard one, in turns) and with LL4AL (its joint step on
+     P3..P6 against the task step, in turns); (c) ``faster_mobilenet`` from
+     a seeded torchvision-layout ``mobilenet_v3_large`` backbone that the
+     phase writes as ``.npz``: one K1 per detect, one K2 and one K3 per
+     step, and K1 against its plain version on the model's two stride-32
+     levels (limits as phase 3's, the levels scaled to unit deviation); (d)
+     ``retina_mobilenet`` from the same file, no RoI kernel.
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
 K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
-CALD 'FCDRGS' score call and K2/K3's per group-norm step from phase 12),
+CALD 'FCDRGS' score call and K2/K3's per group-norm step from phase 12;
+K1's per ``faster_mobilenet`` detect and K2/K3's per step,
+``launches_mobilenet``, from phase 14),
 its time (K5 and K6: on weights restaged once; ``ms_with_restaging``
 through the wrappers) and its plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type,
@@ -196,7 +219,7 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
             "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
-def roi_work(feats, rois, valid, levels, output_size: int = 7, sr: int = 2):
+def roi_work(feats, rois, valid, levels, output_size: int = 7, sr: int = 2, scales=SCALES):
     """What a RoIAlign over these inputs must touch: (bytes of the level
     pixels that the valid rois' bilinear taps read, each once; operations,
     one multiply and one add per tap and channel: S*S*sr*sr samples x 4
@@ -207,7 +230,7 @@ def roi_work(feats, rois, valid, levels, output_size: int = 7, sr: int = 2):
 
     b, n = rois.shape[:2]
     c = feats[0].shape[-1]
-    pyr = plain._Pyramid([f.shape for f in feats], SCALES, rois.device)
+    pyr = plain._Pyramid([f.shape for f in feats], scales, rois.device)
     keep = valid.reshape(-1)
     r = rois.reshape(-1, 4)[keep].float()
     lv = levels.reshape(-1)[keep].long()
@@ -440,10 +463,13 @@ def amplify_heads_(model) -> None:
                 m.weight.mul_(HEAD_GAINS[name])
 
 
-def calibrate_norms_(model, images, valid_hw) -> None:
+def calibrate_norms_(model, images, valid_hw, min_var: float = 0.0) -> None:
     """Set every frozen norm's mean/var to the statistics of its input on one
     batch, in forward order, so activations stay bounded through the 16
-    bottlenecks (random kaiming weights grow them block by block)."""
+    bottlenecks (random kaiming weights grow them block by block). A
+    variance below ``min_var`` (a channel the random weights leave dead)
+    becomes ``min_var``, which caps that channel's gain once training wakes
+    it."""
     import torch
 
     from cald_tpu_torch.models.layers import FrozenBatchNorm
@@ -451,7 +477,7 @@ def calibrate_norms_(model, images, valid_hw) -> None:
     def pre_hook(mod, args):
         x = args[0].float()
         mod.mean.copy_(x.mean(dim=(0, 2, 3)))
-        mod.var.copy_(x.var(dim=(0, 2, 3)))
+        mod.var.copy_(x.var(dim=(0, 2, 3)).clamp_min(min_var))
 
     handles = [m.register_forward_pre_hook(pre_hook) for m in model.modules()
                if isinstance(m, FrozenBatchNorm)]
@@ -1115,7 +1141,7 @@ class StageCounts:
 
         driver, orig_epoch = self.driver, self.driver.train_one_epoch
         orig_ll, self._vaal_step = driver.make_ll_train_step, VAALTrainer.train_step
-        self._detect = driver.FasterRCNN.detect
+        self._detects = {cls: cls.detect for cls in (driver.FasterRCNN, driver.RetinaNet)}
 
         def epoch_counting(step_fn, *args, **kwargs):
             def step(*a):
@@ -1142,7 +1168,7 @@ class StageCounts:
 
         def detect_counting(model, images, valid_hw):
             self.detects.append((self.stage, images.shape[0]))
-            return self._detect(model, images, valid_hw)
+            return self._detects[type(model)](model, images, valid_hw)
 
         patches = {"train_cycle": self._counted("train", driver.train_cycle),
                    "_train_cycle_ll4al": self._counted("train", driver._train_cycle_ll4al),
@@ -1155,7 +1181,8 @@ class StageCounts:
         self._saved = {k: getattr(driver, k) for k in patches}
         for k, v in patches.items():
             setattr(driver, k, v)
-        driver.FasterRCNN.detect = detect_counting
+        for cls in self._detects:
+            cls.detect = detect_counting
         VAALTrainer.train_step = vaal_counting
         for k in self.kernels.values():
             k.launches = 0
@@ -1167,7 +1194,8 @@ class StageCounts:
         self.launches = {name: k.launches for name, k in self.kernels.items()}
         for k, v in self._saved.items():
             setattr(self.driver, k, v)
-        self.driver.FasterRCNN.detect = self._detect
+        for cls, detect in self._detects.items():
+            cls.detect = detect
         VAALTrainer.train_step = self._vaal_step
         return False
 
@@ -1923,6 +1951,397 @@ def ssm_phase(device, kernels: dict, card: str, workdir: str, backbone: str,
     return {"history": history, "cv": cv, "detect_ms": times, "wall_s": wall}
 
 
+P14_SPREAD_BIAS = -1.5            # cls_logits bias of the timing variant: sigmoid 0.18
+# the seeded MobileNet's calibrated variances are at least this (its random
+# depthwise and squeeze-excite weights leave channels dead; at var 0 such a
+# channel's gain, 1/sqrt(1e-5), blows training up once a step wakes it)
+P14_MIN_VAR = 1e-2
+
+
+def _p14_run(driver, kernels: dict, device, card: str, workdir: str, datasets, label: str,
+             backbone: str, **kw) -> dict:
+    """One ``al_loop`` of phase 14 (phase 11's cut: 2 cycles of 1 epoch,
+    one selection) with its launches by stage, and its checks: finite
+    losses, the labeled set grown by the budget (CALD: up to int(mr *
+    budget), as phase 11), a finite mAP per cycle, ``cycle_0/`` written
+    and read back by ``--resume`` (the same number selected again), and the
+    valid slots of a detect from that checkpoint (score threshold 0, so
+    that every slot fills) carrying labels in 1..20."""
+    import torch
+
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.engine.checkpoint import load_checkpoint
+
+    out = os.path.join(workdir, label.replace(" ", "_"))
+    cfg = _p13_cfg(workdir, backbone, device, output_dir=out, **kw)
+    counts = StageCounts(driver, kernels, device)
+    with counts:
+        t0 = time.perf_counter()
+        history = driver.al_loop(cfg, datasets=datasets)
+        wall = time.perf_counter() - t0
+    _print_cycles(history, label, card)
+    steps = counts.losses + [{k: v for k, v in s.items() if k != "detached"}
+                             for s in counts.ll_steps]
+    print(f"{label}: {len(steps)} training steps, last losses {steps[-1] if steps else None}; "
+          f"{len(counts.detects)} detects; launches by stage {json.dumps(counts.stages)}; "
+          f"{wall:.2f} s on {card}")
+    if not (steps and all(math.isfinite(v) for d in steps for v in d.values())):
+        raise AssertionError(f"{label}: no training step, or non-finite losses")
+    picked = history[0]["labeled"] - cfg.init_num
+    top = int(cfg.mr * cfg.budget_num) if cfg.strategy == "cald" else cfg.budget_num
+    if not (cfg.budget_num <= picked <= top and history[1]["labeled"] == history[0]["labeled"]):
+        raise AssertionError(f"{label}: the labeled set did not grow by the budget: {history}")
+    if not all(math.isfinite(h["eval"]["mAP"]) for h in history):
+        raise AssertionError(f"{label}: non-finite VOC mAP")
+
+    ckpt = os.path.join(out, "cycle_0")
+    resumed = driver.al_loop(dataclasses.replace(cfg, resume=ckpt, output_dir="",
+                                                 eval_every_cycle=False), datasets=datasets)
+    same = resumed[0]["labeled_digest"] == history[0]["labeled_digest"]
+    print(f"{label}: --resume {ckpt}: cycle 0 {resumed[0]['eval']}, labeled "
+          f"{resumed[0]['labeled']} (the same images: {same})")
+    if not (resumed[0]["eval"] == {"resumed": True}
+            and resumed[0]["labeled"] == history[0]["labeled"]):
+        raise AssertionError(f"{label}: --resume from cycle_0 did not select the budget again")
+
+    num_classes = len(datasets[0].class_names)
+    model, _ = driver.build_model(cfg, num_classes)
+    model.to(device)
+    load_checkpoint(ckpt, model)
+    low = driver._variant(model, **({"score_thresh": 0.0} if isinstance(model, driver.RetinaNet)
+                                    else {"box_score_thresh": 0.0}))
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    groups = create_aspect_ratio_groups(datasets[1].aspect_ratios(),
+                                        cfg.aspect_ratio_group_factor)
+    batch = next(iter(driver._loaders(cfg, datasets[1], range(BATCH), batch_size=BATCH,
+                                      train=False, canvases=canvases, group_ids=groups)))
+    with torch.inference_mode():
+        dets = low.detect(torch.from_numpy(batch.images).to(device),
+                          torch.from_numpy(batch.valid_hw).to(device))
+    labels = dets.labels[dets.valid].tolist()
+    print(f"{label}: a detect of the test batch from cycle_0 at score threshold 0: "
+          f"{len(labels)} valid slots, labels {min(labels, default=None)}.."
+          f"{max(labels, default=None)}")
+    if not (labels and min(labels) >= 1 and max(labels) < num_classes):
+        raise AssertionError(f"{label}: valid detections with labels outside 1..20")
+    del model, low
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "history": history, "counts": counts, "steps": len(steps),
+            "wall_s": wall}
+
+
+def _no_roi_kernels(run: dict, label: str):
+    """RetinaNet runs no RoIAlign: no RoI kernel in any stage."""
+    launches = run["counts"].launches
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a RetinaNet run launched a RoI kernel: {launches}")
+
+
+def retina_reference_check(model, device) -> float:
+    """The f32 RetinaNet pyramid and head outputs on the GPU against the CPU
+    path of the same weights on a small input (TF32 off); returns the max
+    relative error (of each tensor's largest magnitude)."""
+    import torch
+
+    f32 = type(model)(dataclasses.replace(model.cfg, compute_dtype="float32")).eval()
+    f32.load_state_dict(model.state_dict())
+    images = torch.from_numpy(make_pool(BATCH, seed=SEED + 2)[0].images[:2, :128, :192].copy())
+    hw = torch.tensor([[128, 192], [100, 150]], dtype=torch.int32)
+
+    def outputs(m, im, h):
+        with torch.inference_mode():
+            pyramid = m.features(im, h)
+            return [*pyramid, *m.head(pyramid)]
+
+    want = outputs(f32, images, hw)
+    f32.to(device)
+    got = outputs(f32, images.to(device), hw.to(device))
+    err = max(((g.cpu() - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+    print(f"retina reference: f32 P3..P7 and head logits/regressions GPU vs CPU on 2x128x192, "
+          f"max relative error {err:.3e} (limit 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("the RetinaNet pyramid or head on the GPU disagrees with the CPU")
+    return err
+
+
+def retina_head_flops(pyramid, cfg) -> float:
+    """Operations of RetinaNet's head on one image of this pyramid: 8 shared
+    3x3 256->256 convs and the two output convs at every position."""
+    c, a = cfg.fpn_channels, len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
+    positions = sum(f.shape[-2] * f.shape[-1] for f in pyramid)
+    return 2.0 * 9 * c * (8 * c + a * cfg.num_classes + a * 4) * positions
+
+
+def retina_timings(model, device, card: str) -> dict:
+    """(a)'s timing at B=8 on the 640x1024 canvas: the CALD score call (5
+    warm calls, peak memory) on the trained model and on a variant whose
+    cls_logits bias is ``P14_SPREAD_BIAS`` (every anchor a candidate: the
+    postprocess and NMS at their widest), and that variant's detect split
+    into the pyramid + head convs, the postprocess and its NMS (synced
+    timers around ``batched_nms``)."""
+    import torch
+
+    from cald_tpu_torch.models import retinanet
+    from cald_tpu_torch.strategies.cald import CALDConfig, make_cald_score_fn
+    from cald_tpu_torch.augment.suite import generator_draw
+
+    spread = copy.deepcopy(model)
+    with torch.no_grad():
+        spread.head.cls_logits.bias.fill_(P14_SPREAD_BIAS)
+    batch = make_pool(BATCH, seed=SEED + 5)[0]
+    images = torch.from_numpy(batch.images).to(device)
+    hw = torch.from_numpy(batch.valid_hw).to(device)
+    draw = generator_draw(torch.Generator(device=device).manual_seed(SEED + 3))
+    out: dict = {}
+    for name, m in (("trained", model), ("spread", spread)):
+        score_fn = make_cald_score_fn(m, CALDConfig(), NUM_CLASSES)
+        with torch.inference_mode():
+            score_fn(images, hw, draw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _warm_ms(lambda: score_fn(images, hw, draw), 5)
+            peak = torch.cuda.max_memory_allocated()
+            valid = int(m.detect(images, hw).valid.sum())
+        out[name] = {"score_ms": ms, "peak_gib": peak / 2 ** 30, "valid": valid}
+        print(f"retina time: CALD score call of B={BATCH} on {CANVAS}, {name} heads: {ms:.1f} "
+              f"ms/call, {BATCH / ms * 1e3:.2f} images/s, peak {peak / 2 ** 30:.2f} GiB, "
+              f"{valid} valid detections in the base detect on {card}")
+
+    nms_ms = []
+    orig_nms = retinanet.batched_nms
+
+    def timed_nms(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig_nms(*a, **k)
+        torch.cuda.synchronize()
+        nms_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    with torch.inference_mode():
+        conv_ms = _warm_ms(lambda: spread.head(spread.features(images, hw)), 5)
+        detect_ms = _warm_ms(lambda: spread.detect(images, hw), 5)
+        pyramid = spread.features(images, hw)
+        retinanet.batched_nms = timed_nms
+        try:
+            _warm_ms(lambda: spread.detect(images, hw), 5)
+        finally:
+            retinanet.batched_nms = orig_nms
+    nms = float(np.mean(nms_ms[1:]))
+    flops = retina_head_flops(pyramid, spread.cfg)
+    print(f"retina time: detect of B={BATCH} (spread heads) {detect_ms:.1f} ms: pyramid + head "
+          f"convs {conv_ms:.1f} ms, postprocess {detect_ms - conv_ms - nms:.1f} ms + NMS "
+          f"{nms:.1f} ms (synced); the head is {flops / 1e12:.4f} TFLOP per image over "
+          f"{sum(f.shape[-2] * f.shape[-1] for f in pyramid)} P3..P7 positions on {card}")
+    del spread
+    torch.cuda.empty_cache()
+    return {**out, "detect_ms": detect_ms, "conv_ms": conv_ms, "nms_ms": nms,
+            "head_tflop_per_image": flops / 1e12}
+
+
+def retina_phase(device, kernels: dict, card: str, workdir: str, backbone: str) -> dict:
+    """Phase 14(a)-(b): RetinaNet R50-FPN at full width from phase 11's
+    torchvision-layout backbone: the f32 GPU/CPU check, ``al_loop`` with
+    CALD (and a warm training step, the CALD score call and the detect's
+    split), then with SSM (its NMS-0.3 detect against the standard one, in
+    turns) and LL4AL (its joint step on P3..P6 against the task step, in
+    turns); no RoI kernel anywhere."""
+    import torch
+
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.engine.checkpoint import load_checkpoint
+    from cald_tpu_torch.engine.optim import RESNET_FROZEN_L3, make_sgd
+    from cald_tpu_torch.engine.train import make_train_step
+    from cald_tpu_torch.models.init import random_init_
+    from cald_tpu_torch.strategies.ll4al import make_ll_train_step
+
+    _, datasets = _al_data(workdir)
+    num_classes = len(datasets[0].class_names)
+    cfg = _p13_cfg(workdir, backbone, device, model="retina")
+    model, frozen = driver.build_model(cfg, num_classes)
+    random_init_(model, cfg.seed)
+    driver._apply_pretrained_backbone(model, cfg)
+    model.eval()
+    retina_reference_check(model, device)
+
+    run = _p14_run(driver, kernels, device, card, workdir, datasets, "retina cald", backbone,
+                   model="retina")
+    _no_roi_kernels(run, "retina cald")
+
+    # a warm training step at B=4 on the loop's canvas, from the fresh weights
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    groups = create_aspect_ratio_groups(datasets[0].aspect_ratios(), cfg.aspect_ratio_group_factor)
+    tb = next(iter(driver._loaders(cfg, datasets[0], range(TRAIN_BATCH), batch_size=TRAIN_BATCH,
+                                   train=True, canvases=canvases, group_ids=groups, seed=SEED)))
+    tbatch = driver._tensors(tb, device)
+    model.to(device).train()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, make_sgd(model, FIXED_LR, frozen_prefixes=frozen))
+    step_ms = _warm_ms(lambda: step(*tbatch, None), 5)
+    print(f"retina time: training step of B={TRAIN_BATCH} on {tuple(tb.images.shape[1:3])}: "
+          f"{step_ms:.1f} ms/step on {card}")
+
+    model.eval()
+    load_checkpoint(os.path.join(run["cfg"].output_dir, "cycle_0"), model)
+    timing = retina_timings(model, device, card)
+
+    ssm = _p14_run(driver, kernels, device, card, workdir, datasets, "retina ssm", backbone,
+                   model="retina", strategy="ssm")
+    _no_roi_kernels(ssm, "retina ssm")
+    spread = copy.deepcopy(model)
+    with torch.no_grad():
+        spread.head.cls_logits.bias.fill_(P14_SPREAD_BIAS)
+    ssm_model = driver._variant(spread, nms_thresh=0.3)
+    batch = make_pool(BATCH, seed=SEED + 4)[0]
+    images = torch.from_numpy(batch.images).to(device)
+    hw = torch.from_numpy(batch.valid_hw).to(device)
+    detect_ms = {"standard": [], "ssm": []}
+    with torch.inference_mode():
+        for name in ("standard", "ssm", "ssm", "standard"):
+            m = spread if name == "standard" else ssm_model
+            detect_ms[name].append(_warm_ms(lambda: m.detect(images, hw), 5))
+    print(f"retina ssm time: detect of B={BATCH} on {CANVAS} (spread heads) in turns, standard "
+          f"(NMS 0.5) {detect_ms['standard']} ms, SSM (NMS 0.3) {detect_ms['ssm']} ms on {card}")
+    del spread, ssm_model
+
+    ll4al = _p14_run(driver, kernels, device, card, workdir, datasets, "retina ll4al", backbone,
+                     model="retina", strategy="ll4al")
+    _no_roi_kernels(ll4al, "retina ll4al")
+    model.load_state_dict(init)
+    model.train()
+    lossnet = driver._new_lossnet(model, cfg, device)
+    if lossnet.num_levels != 4:
+        raise AssertionError("retina: LossNet does not read P3..P6")
+    joint = make_ll_train_step(model, lossnet, make_sgd(model, FIXED_LR, frozen_prefixes=frozen),
+                               make_sgd(lossnet, FIXED_LR), ll_weight=cfg.ll_weight)
+    task = make_train_step(model, make_sgd(model, FIXED_LR, frozen_prefixes=frozen))
+    step_times = {"task": [], "joint": []}
+    for name in ("task", "joint", "joint", "task"):
+        fn = ((lambda: task(*tbatch, None)) if name == "task"
+              else (lambda: joint(*tbatch, None, detach_features=False)))
+        step_times[name].append(_warm_ms(fn, 5))
+    print(f"retina ll4al time: joint step of B={TRAIN_BATCH} (LossNet on P3..P6) "
+          f"{step_times['joint']} ms, task step {step_times['task']} ms (in turns) on {card}")
+    del model, lossnet, init
+    torch.cuda.empty_cache()
+    return {"cald": run, "ssm": ssm, "ll4al": ll4al, "step_ms": step_ms, "timing": timing,
+            "ssm_detect_ms": detect_ms, "ll4al_step_ms": step_times}
+
+
+def mobilenet_kernel_check(model, device, card: str) -> dict:
+    """K1 against its plain version on faster_mobilenet's two stride-32
+    levels at B=8 on the 640x1024 canvas, with the model's own 1000
+    proposals per image (every roi maps to the first level), the levels
+    scaled to unit standard deviation: bf16 levels against the plain f32
+    version (atol 5e-2) and f32 levels (atol 1e-4, TF32 off), as phase 3;
+    the kernel's and the plain version's times and the bound."""
+    import torch
+
+    from cald_tpu_torch.models.rpn import select_proposals
+    from cald_tpu_torch.ops import roi_align as plain
+    from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel
+
+    batch = make_pool(BATCH, seed=SEED + 6)[0]
+    images = torch.from_numpy(batch.images).to(device)
+    hw = torch.from_numpy(batch.valid_hw).to(device)
+    cfg = model.cfg
+    with torch.inference_mode():
+        pyramid = model.features(images, hw)
+        objectness, deltas = model.rpn_head(pyramid)
+        anchors, counts = model._anchors(pyramid, device)
+        rois, _, valid = select_proposals(objectness, deltas, anchors, counts, hw,
+                                          pre_nms_top_n=cfg.rpn_pre_nms_top_n_test,
+                                          post_nms_top_n=cfg.rpn_post_nms_top_n_test,
+                                          nms_thresh=cfg.rpn_nms_thresh)
+        rois, valid = rois.contiguous(), valid.contiguous()
+        feats, scales = model._roi_levels(pyramid)
+        # scaled to unit standard deviation, so that phase 3's limits apply
+        sd = torch.cat([f.float().reshape(-1) for f in feats]).std()
+        feats = [(f.float() / sd).to(f.dtype).contiguous() for f in feats]
+        feats32 = [f.float() for f in feats]
+        want = plain.multi_scale_roi_align(feats32, rois, spatial_scales=scales, valid=valid)
+        got = roi_align_kernel(feats, rois, valid, spatial_scales=scales)
+        got32 = roi_align_kernel(feats32, rois, valid, spatial_scales=scales)
+        torch.cuda.synchronize()
+        levels = plain.roi_levels(rois, scales)
+        err_bf16 = (got.float() - want)[valid].abs().max().item()
+        err_f32 = (got32 - want)[valid].abs().max().item()
+        ms = cuda_ms(lambda: roi_align_kernel(feats, rois, valid, spatial_scales=scales), 20)
+        plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align(
+            feats, rois, spatial_scales=scales, valid=valid), 5)
+    level_bytes, n_ops = roi_work(feats, rois, valid, levels, scales=scales)
+    b = bound(level_bytes + got.numel() * 2 + roi_index_bytes(rois, valid, levels), n_ops,
+              F32_OPS_S)
+    print(f"mobilenet kernel: roi_align on the two stride-32 levels {[tuple(f.shape) for f in feats]}"
+          f" ({feats[0].dtype}), {int(valid.sum())} valid rois of {rois.shape[1]} per image x "
+          f"{rois.shape[0]}, level 0 for all: {bool((levels == 0).all())}; bf16 max_abs_err "
+          f"{err_bf16:.3e} (atol 5e-2), f32 {err_f32:.3e} (atol 1e-4); K1 {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) on {card}")
+    if not (err_bf16 <= 5e-2 and err_f32 <= 1e-4 and bool((levels == 0).all())):
+        raise AssertionError("faster_mobilenet: K1 disagrees with its plain version, or a roi "
+                             "left the first level")
+    return {"max_abs_err": err_bf16, "max_abs_err_f32": err_f32, "ms": ms, "plain_ms": plain_ms,
+            **b}
+
+
+def mobilenet_phase(device, kernels: dict, card: str, workdir: str) -> dict:
+    """Phase 14(c)-(d): ``faster_mobilenet`` from a seeded torchvision-layout
+    ``mobilenet_v3_large`` backbone that the phase writes as ``.npz`` (the
+    seeded init, frozen norms calibrated on one batch of the data): one K1
+    per detect and one K2 and one K3 per training step, K1 against its plain
+    version on the model's two-level pyramid; then ``retina_mobilenet`` from
+    the same file, with no RoI kernel."""
+    import torch
+
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.convert.torchvision_import import backbone_state_dict
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.engine.checkpoint import load_checkpoint
+    from cald_tpu_torch.models.init import random_init_
+
+    _, datasets = _al_data(workdir)
+    num_classes = len(datasets[0].class_names)
+    path = os.path.join(workdir, "mobilenet_v3_large.npz")
+    cfg = _p13_cfg(workdir, path, device, model="faster_mobilenet")
+    model, _ = driver.build_model(cfg, num_classes)
+    random_init_(model, cfg.seed)
+    model.to(device)
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    groups = create_aspect_ratio_groups(datasets[0].aspect_ratios(), cfg.aspect_ratio_group_factor)
+    calib = next(iter(driver._loaders(cfg, datasets[0], range(TRAIN_BATCH), batch_size=TRAIN_BATCH,
+                                      train=False, canvases=canvases, group_ids=groups)))
+    calibrate_norms_(model, torch.from_numpy(calib.images).to(device),
+                     torch.from_numpy(calib.valid_hw).to(device), min_var=P14_MIN_VAR)
+    np.savez(path, **{k: v.numpy() for k, v in backbone_state_dict(model).items()})
+    del model
+
+    run = _p14_run(driver, kernels, device, card, workdir, datasets, "faster_mobilenet cald",
+                   path, model="faster_mobilenet")
+    counts = run["counts"]
+    train_k = counts.total("train")
+    if not (train_k["roi_align_train_fwd"] == run["steps"] == train_k["roi_align_bwd"]
+            and train_k["roi_align"] == 0 and train_k["roi_align_group_fwd"] == 0):
+        raise AssertionError(f"faster_mobilenet: training did not launch K2 and K3 once per "
+                             f"step: {train_k}")
+    n_detects = _check_inference(counts, "faster_mobilenet")
+
+    model, _ = driver.build_model(cfg, num_classes)
+    model.to(device).eval()
+    load_checkpoint(os.path.join(run["cfg"].output_dir, "cycle_0"), model)
+    check = mobilenet_kernel_check(model, device, card)
+    del model
+    torch.cuda.empty_cache()
+
+    retina = _p14_run(driver, kernels, device, card, workdir, datasets, "retina_mobilenet cald",
+                      path, model="retina_mobilenet")
+    _no_roi_kernels(retina, "retina_mobilenet cald")
+    return {"faster": run, "retina": retina, "check": check,
+            "launches": {"detects": n_detects, "roi_align": counts.total("eval", "score")["roi_align"],
+                         "steps": run["steps"], "roi_align_train_fwd": train_k["roi_align_train_fwd"],
+                         "roi_align_bwd": train_k["roi_align_bwd"]}}
+
+
 def main() -> int:
     import torch
 
@@ -2019,6 +2438,19 @@ def main() -> int:
         vaal = vaal_phase(device, all_kernels, card, p13, al["backbone"])
         ssm = ssm_phase(device, all_kernels, card, p13, al["backbone"], learn)
         print(f"phase 13: {time.perf_counter() - t13:.2f} s on {card}")
+
+        t14 = time.perf_counter()
+        p14 = os.path.join(workdir, "p14")
+        retina = retina_phase(device, all_kernels, card, p14, al["backbone"])
+        mobile = mobilenet_phase(device, all_kernels, card, p14)
+        print(f"phase 14: {time.perf_counter() - t14:.2f} s on {card}")
+    ml = mobile["launches"]
+    kernel["launches_mobilenet"] = {"launches": ml["roi_align"], "detects": ml["detects"],
+                                    "per_detect": ml["roi_align"] / ml["detects"]}
+    kernel["mobilenet_two_levels"] = mobile["check"]
+    for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
+        entry["launches_mobilenet"] = {"launches": ml[name], "steps": ml["steps"],
+                                       "per_step": ml[name] / ml["steps"]}
     kernel["launches_ssm"] = {k: ssm["cv"][k] for k in ("detects", "redetects")}
     for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
         entry["launches_ll4al"] = {"launches": ll4al["train_launches"][name],

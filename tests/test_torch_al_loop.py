@@ -5,8 +5,9 @@ and random picks, VOC evaluation, evaluation of the tiny detector with
 bridged weights; then the port's own ``al_loop`` on the tiny model
 (``cald``, ``random``, ``--resume``; group norm with 'FCDRGS', ``ltc``,
 ``lsc``; ``ssm``, ``ll4al`` and ``vaal``, the last two resumed from a cycle
-checkpoint with their carry-state) and ``cli.main``'s refusal to run on the
-CPU unasked."""
+checkpoint with their carry-state), the RetinaNet models (tiny through
+``cli.main`` with CALD, tiny with SSM, MobileNet with LL4AL) and
+``cli.main``'s refusal to run on the CPU unasked."""
 
 import dataclasses
 import functools
@@ -32,7 +33,7 @@ from cald_tpu.engine.evaluate import evaluate as jevaluate
 from cald_tpu.engine.voc_eval import voc_evaluate_detections as jvoc_eval
 from cald_tpu.strategies.cald import labeled_class_counts as jlabeled_class_counts
 from cald_tpu.strategies.random_strategy import random_select as jrandom_select
-from cald_tpu_torch.cli import config, driver
+from cald_tpu_torch.cli import config, driver, main
 from cald_tpu_torch.data import batching
 from cald_tpu_torch.data.loader import BatchLoader
 from cald_tpu_torch.data.pool import ALPoolState
@@ -44,6 +45,7 @@ from cald_tpu_torch.engine.evaluate import evaluate
 from cald_tpu_torch.engine.voc_eval import voc_evaluate_detections
 from cald_tpu_torch.strategies.cald import labeled_class_counts
 from cald_tpu_torch.strategies.random_strategy import random_select
+from cald_tpu_torch.models.retinanet import RetinaNet
 from cald_tpu_torch.strategies.vaal import VAALTrainer
 from tests.torch_helpers import tiny_models
 
@@ -230,7 +232,7 @@ def test_evaluate_matches_jax(voc, pil_decode):
                        print_fn=quiet)
     for k in ("mAP", "AP50", "AP75", "recall"):
         assert abs(m_got[k] - m_want[k]) < 1e-6, k
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         evaluate(tmodel, [], ds, kind="coco", device="cpu")
 
 
@@ -292,13 +294,27 @@ def test_al_loop_random_matches_jax_picks(voc):
     assert [h["labeled"] for h in history] == [6, 8, 8]
 
 
-def test_unported_options_raise(voc):
-    for kw, item in (({"model": "faster_mobilenet"}, 8), ({"model": "retina"}, 8),
-                     ({"score_shrink_slice": True}, 13)):
+def test_unported_options_raise(voc, monkeypatch):
+    """What the port does not run yet raises before any work, naming its
+    ROADMAP queue item: COCO (5), multi-process launches (6) and
+    --score-shrink-slice (8); an unknown model is a ValueError."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        driver.build_datasets(_cfg(voc["npy"], dataset="coco").resolve())
+    _no_work(monkeypatch)
+    for kw, item in (({"score_shrink_slice": True}, 8), ({"dataset": "coco"}, 5)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
             driver.al_loop(_cfg(voc["npy"], **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        driver.build_datasets(_cfg(voc["npy"], dataset="coco").resolve())
+    for env in ({"WORLD_SIZE": "2"}, {"JAX_COORDINATOR_ADDRESS": "localhost:1234"},
+                {"CALD_TPU_DISTRIBUTED": "1"}):
+        with monkeypatch.context() as m:
+            for k, v in env.items():
+                m.setenv(k, v)
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+                driver.al_loop(_cfg(voc["npy"]))
+    with pytest.raises(ValueError, match="unknown model"):
+        driver.al_loop(_cfg(voc["npy"], model="yolo"))
+    with pytest.raises(ValueError, match="unknown model"):
+        driver.build_model(_cfg(voc["npy"], model="yolo").resolve(), 21)
 
 
 def _no_work(monkeypatch):
@@ -469,6 +485,71 @@ def test_scoring_model_trims_share_the_weights():
     assert driver._scoring_model(config.ALConfig(tiny=True).resolve(), model) is model
     r50, frozen = driver.build_model(config.ALConfig().resolve(), 21)
     assert frozen == ("backbone.conv1", "backbone.layer1")
+
+
+def test_main_runs_tiny_retina_on_the_cpu(voc):
+    """``cli.main`` with ``--model retina --tiny --device cpu``: two cycles
+    of CALD, labeled 4 -> 7, a finite mAP per cycle."""
+    history = main.main(["--model", "retina", "--tiny", "--device", "cpu", "--data-path",
+                         voc["npy"], "--cycles", "2", "--epochs", "1", "-b", "2",
+                         "--init-num", "4", "--budget-num", "3", "--score-batch-size", "2",
+                         "--min-size", "96", "--max-size", "128", "--max-boxes", "8",
+                         "--workers", "2", "--aspect-ratio-group-factor", "0"])
+    assert [h["labeled"] for h in history] == [7, 7]
+    assert all(np.isfinite(h["eval"]["mAP"]) for h in history)
+
+
+@pytest.mark.parametrize("model,kw", [
+    ("retina", dict(tiny=True, strategy="ssm")),
+    ("retina_mobilenet", dict(tiny=False, strategy="ll4al", task_epochs=0)),
+], ids=["retina-tiny-ssm", "retina_mobilenet-ll4al"])
+def test_al_loop_retina_models_grow_by_the_budget(voc, monkeypatch, model, kw):
+    """Two cycles of each RetinaNet on the 96x128 canvas: labeled 4 -> 7,
+    finite mAP and losses. SSM detects the pool with the NMS-0.3 variant
+    through RetinaNet's own postprocess (the weights shared); LL4AL's
+    LossNet reads retina_mobilenet's one level."""
+    seen = []
+    pool_detections = driver._ssm_pool_detections
+    monkeypatch.setattr(driver, "_ssm_pool_detections",
+                        lambda m, *a: seen.append(m) or pool_detections(m, *a))
+    history = driver.al_loop(_cfg(voc["npy"], model=model, **kw))
+    assert [h["labeled"] for h in history] == [7, 7]
+    assert all(np.isfinite(h["eval"]["mAP"]) for h in history)
+    if kw["strategy"] == "ssm":
+        (ssm_model,) = seen
+        assert ssm_model.cfg.nms_thresh == 0.3 and not hasattr(ssm_model.cfg, "ssm_mode")
+        assert isinstance(ssm_model, RetinaNet)
+
+
+def test_build_model_frozen_prefixes_lossnet_levels_and_retina_trim():
+    """The JAX driver's model table: conv1/layer1 frozen for the ResNet-50
+    models under frozen norms, nothing for tiny, group-norm or MobileNet
+    models; the tiny RetinaNet's counts; LossNet over the first 4 levels of
+    each pyramid; ``--score-rpn-post-nms`` trims RetinaNet's
+    ``topk_candidates`` (capped at the model's own) and shares the weights."""
+    frozen = ("backbone.conv1", "backbone.layer1")
+    table = {("retina", False, "frozen"): frozen, ("retina", True, "frozen"): (),
+             ("retina", False, "group"): (), ("faster_mobilenet", False, "frozen"): (),
+             ("retina_mobilenet", False, "frozen"): ()}
+    levels = {"retina": 4, "faster_mobilenet": 3, "retina_mobilenet": 1, "faster": 4}
+    for (name, tiny, norm), want in table.items():
+        cfg = config.ALConfig(model=name, tiny=tiny, norm=norm, device="cpu").resolve()
+        model, got = driver.build_model(cfg, 21)
+        assert got == want, (name, tiny, norm)
+        lossnet = driver._new_lossnet(model, cfg, "cpu")
+        assert lossnet.num_levels == levels[name]
+    cfg = config.ALConfig(model="retina", tiny=True, score_rpn_post_nms=32).resolve()
+    model, _ = driver.build_model(cfg, 21)
+    assert (model.cfg.topk_candidates, model.cfg.detections_per_img) == (64, 16)
+    assert model.cfg.anchor_sizes == ((16, 20),) * 5
+    variant = driver._scoring_model(cfg, model)
+    assert variant.cfg.topk_candidates == 32 and model.cfg.topk_candidates == 64
+    assert variant.head.cls_logits.weight is model.head.cls_logits.weight
+    wide = dataclasses.replace(cfg, score_rpn_post_nms=100)
+    assert driver._scoring_model(wide, model) is model
+    mobile, _ = driver.build_model(config.ALConfig(model="faster_mobilenet").resolve(), 21)
+    assert mobile.cfg.anchor_sizes == ((32, 64, 128, 256, 512),)
+    assert mobile.cfg.strides == (32, 32, 64)
 
 
 def test_skip_reuses_the_first_cycle_and_profile_writes_a_trace(voc, tmp_path):

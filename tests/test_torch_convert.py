@@ -12,13 +12,16 @@ import pytest
 import torch
 
 from cald_tpu.models.lossnet import LossNet as JLossNet
+from cald_tpu.models.retinanet import RetinaNet as JRetinaNet
+from cald_tpu.models.retinanet import RetinaNetConfig as JRetinaConfig
 from cald_tpu.models.vae import VAAL_VAE as JVAE
 from cald_tpu.models.vae import VAALDiscriminator as JDisc
 from cald_tpu_torch.convert.from_flax import VAE_TRANSPOSED, flax_to_state_dict, module_state_dict
 from cald_tpu_torch.models.lossnet import LossNet
 from cald_tpu_torch.models.vae import VAAL_VAE, VAALDiscriminator
 from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
-from tests.torch_helpers import TINY, tiny_models
+from cald_tpu_torch.models.retinanet import RetinaNet, RetinaNetConfig
+from tests.torch_helpers import TINY, TINY_RETINA, tiny_images, tiny_models
 
 
 @pytest.fixture(scope="module")
@@ -64,6 +67,73 @@ def test_unexpected_input_raises(bridged, bad):
         broken = {"params": {"x": {"scale": np.ones(3)}}, "frozen": {}}
     with pytest.raises(ValueError):
         flax_to_state_dict(broken)
+
+
+RETINA_VARIANTS = {"retina": {},
+                   "retina_mobilenet": dict(backbone="mobilenet",
+                                            anchor_sizes=((16, 32, 64, 128, 256),))}
+
+
+@pytest.fixture(scope="module", params=sorted(RETINA_VARIANTS))
+def retina_bridged(request):
+    """A Flax-initialised RetinaNet (tiny or MobileNetV3, 4 classes) and its
+    bridged state dict; the init runs the pyramid and the head only."""
+    cfg = {**TINY_RETINA, **RETINA_VARIANTS[request.param]}
+    jm = JRetinaNet(JRetinaConfig(**cfg))
+    images, hw = (jnp.asarray(a) for a in tiny_images())
+    variables = jax.jit(lambda k: jm.init(k, images, hw, method=lambda m, i, h: m.head(
+        m.extract_features(i, h))))(jax.random.key(0))
+    variables = jax.tree.map(np.asarray, variables)
+    return request.param, cfg, variables, flax_to_state_dict(variables)
+
+
+def test_retina_bridge_fills_every_parameter(retina_bridged):
+    """Every Flax leaf of RetinaNet (ResNet + P6/P7, or MobileNetV3 +
+    ``reduce``) lands on a port tensor of the same shape, strict."""
+    _, cfg, variables, sd = retina_bridged
+    assert len(sd) == len(jax.tree_util.tree_leaves(variables))
+    model = RetinaNet(RetinaNetConfig(**cfg))
+    want = model.state_dict()
+    assert set(sd) == set(want)
+    for k, v in sd.items():
+        assert v.shape == want[k].shape, k
+    model.load_state_dict(sd, strict=True)
+
+
+def test_retina_bridge_layouts(retina_bridged):
+    """Depthwise (k, k, 1, E) -> (E, 1, k, k); squeeze-excite biases; the
+    MobileNet norms by their block's convs (block0 has no expand); P6/P7,
+    the head's output convs and ``reduce`` as plain convs."""
+    name, _, variables, sd = retina_bridged
+    p, f = variables["params"], variables["frozen"]
+
+    def oihw(k):
+        return np.asarray(k).transpose(3, 2, 0, 1)
+
+    head = p["head"]
+    for conv in ("cls_logits", "bbox_reg", "cls_conv3"):
+        np.testing.assert_array_equal(sd[f"head.{conv}.weight"].numpy(), oihw(head[conv]["kernel"]))
+        np.testing.assert_array_equal(sd[f"head.{conv}.bias"].numpy(), head[conv]["bias"])
+    if name == "retina":
+        for conv in ("p6", "p7"):
+            np.testing.assert_array_equal(sd[f"fpn.{conv}.weight"].numpy(),
+                                          oihw(p["fpn"][conv]["kernel"]))
+        return
+    bb, fb = p["backbone"], f["backbone"]
+    dw = sd["backbone.block12.depthwise.weight"].numpy()
+    assert dw.shape == (672, 1, 5, 5) == oihw(bb["block12"]["depthwise"]["kernel"]).shape
+    np.testing.assert_array_equal(dw, oihw(bb["block12"]["depthwise"]["kernel"]))
+    np.testing.assert_array_equal(sd["backbone.block12.se.fc1.bias"].numpy(),
+                                  bb["block12"]["se"]["fc1"]["bias"])
+    np.testing.assert_array_equal(sd["reduce.weight"].numpy(), oihw(p["reduce"]["kernel"]))
+    for key, (block, i) in {"block0.depthwise_bn": ("block0", 0),
+                            "block0.project_bn": ("block0", 1),
+                            "block1.expand_bn": ("block1", 0),
+                            "block1.project_bn": ("block1", 2)}.items():
+        np.testing.assert_array_equal(sd[f"backbone.{key}.var"].numpy(),
+                                      fb[block][f"FrozenBatchNorm_{i}"]["var"])
+    np.testing.assert_array_equal(sd["backbone.lastconv_bn.mean"].numpy(),
+                                  fb["FrozenBatchNorm_1"]["mean"])
 
 
 def _flax_modules():
@@ -123,7 +193,7 @@ AL_LOOP_MODULES = (
     "cli.config", "cli.driver", "cli.main", "convert.torchvision_import", "data.batching",
     "data.loader", "data.pool", "data.records", "data.synthetic", "data.transforms",
     "data.voc", "engine.checkpoint", "engine.evaluate", "engine.voc_eval", "models.init",
-    "models.lossnet", "models.vae", "strategies.ll4al", "strategies.random_strategy",
+    "models.lossnet", "models.mobilenetv3", "models.retinanet", "models.vae", "strategies.ll4al", "strategies.random_strategy",
     "strategies.ssm", "strategies.vaal")
 
 
@@ -145,8 +215,9 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.split())
-    # scoring, training, the fused backbone, the AL loop and its strategies
-    assert len(loaded) >= 58
+    # scoring, training, the fused backbone, the AL loop and its strategies,
+    # RetinaNet and MobileNetV3
+    assert len(loaded) >= 60
     assert {f"cald_tpu_torch.{m}" for m in AL_LOOP_MODULES} <= loaded
 
 
@@ -198,3 +269,22 @@ def test_bottleneck_turns_imports_no_jax_and_refuses_without_cuda():
                           str(root / "cald_tpu_torch" / "csrc" / "bottleneck.cu"), "--sweep"],
                          capture_output=True, text=True, timeout=120, cwd=root)
     assert out.returncode != 0 and "wrote" not in out.stdout
+
+
+def test_learnability_repeat_imports_no_jax_and_refuses_without_cuda():
+    """learnability_repeat.py, run on the card, imports neither JAX nor the
+    JAX package (with chip_smoke.py, which it drives), and without a CUDA
+    device exits non-zero before any run."""
+    root = Path(__file__).resolve().parent.parent
+    code = ("import sys\n"
+            "import learnability_repeat, chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cald_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(root / "learnability_repeat.py"), "--runs", "1"],
+                         capture_output=True, text=True, timeout=120, cwd=root)
+    assert out.returncode != 0 and "runs passed" not in out.stdout

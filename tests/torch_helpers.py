@@ -18,8 +18,11 @@ import torch
 
 from cald_tpu.models.faster_rcnn import FasterRCNN as JaxFasterRCNN
 from cald_tpu.models.faster_rcnn import FasterRCNNConfig as JaxConfig
+from cald_tpu.models.retinanet import RetinaNet as JaxRetinaNet
+from cald_tpu.models.retinanet import RetinaNetConfig as JaxRetinaConfig
 from cald_tpu_torch.convert.from_flax import flax_to_state_dict
 from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
+from cald_tpu_torch.models.retinanet import RetinaNet, RetinaNetConfig
 
 torch.set_num_threads(1)
 
@@ -31,6 +34,11 @@ TINY = dict(num_classes=4, backbone="tiny", compute_dtype="float32",
 # with tiny=True)
 TINY_TRAIN = dict(rpn_pre_nms_top_n_train=128, rpn_post_nms_top_n_train=64,
                   rpn_batch_size_per_image=32, box_batch_size_per_image=32)
+# the JAX CLI's tiny RetinaNet (cald_tpu.cli.driver.build_model, tiny=True)
+# with 4 classes, in float32
+TINY_RETINA = dict(num_classes=4, backbone="tiny", compute_dtype="float32",
+                   detections_per_img=16, topk_candidates=64, anchor_sizes=((16, 20),) * 5)
+MOBILE_ANCHORS = ((32, 64, 128, 256, 512),)
 
 
 def tiny_images(seed: int = 7):
@@ -54,6 +62,12 @@ def _amplify(params, frozen, rng):
     p["box_predictor"]["cls_score"]["kernel"] = p["box_predictor"]["cls_score"]["kernel"] * 35.0
     p["box_predictor"]["bbox_pred"]["kernel"] = p["box_predictor"]["bbox_pred"]["kernel"] * 15.0
 
+    return perturb_norms(p, frozen, rng)
+
+
+def perturb_norms(params, frozen, rng):
+    """(params, frozen) with every norm's statistics, or GroupNorm's scale
+    and bias, drawn around their identity values."""
     def perturb(path, x):
         name = path[-1].key
         shape = np.shape(x)
@@ -67,7 +81,7 @@ def _amplify(params, frozen, rng):
         return any(str(getattr(k, "key", "")).startswith("GroupNorm_") for k in path)
 
     p = jax.tree_util.tree_map_with_path(
-        lambda path, x: perturb(path, x) if group_norm(path) else x, p)
+        lambda path, x: perturb(path, x) if group_norm(path) else x, params)
     return p, jax.tree_util.tree_map_with_path(perturb, frozen)
 
 
@@ -83,6 +97,30 @@ def tiny_models(seed: int = 0, norm: str = "frozen", **overrides):
                               np.random.default_rng(seed))
     variables = {"params": params, **({"frozen": frozen} if frozen else {})}
     tmodel = FasterRCNN(FasterRCNNConfig(norm=norm, **cfg))
+    tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
+    return jmodel, variables, tmodel.eval()
+
+
+def retina_models(seed: int = 0, cls_gain: float = 30.0, cls_bias: float = -2.5, **overrides):
+    """(jax_model, variables, torch_model): a RetinaNet in both packages
+    from one seeded Flax init (``TINY_RETINA`` and ``overrides``), its norms
+    perturbed and its output convs amplified (``cls_logits`` by
+    ``cls_gain`` with its bias at ``cls_bias``, ``bbox_reg`` by 8) so that
+    detections survive the 0.05 filter."""
+    cfg = {**TINY_RETINA, **overrides}
+    jmodel = JaxRetinaNet(JaxRetinaConfig(**cfg))
+    images, valid_hw = tiny_images()
+    variables = jax.jit(jmodel.init)(jax.random.key(seed), jnp.asarray(images),
+                                     jnp.asarray(valid_hw))
+    params = copy.deepcopy(jax.tree.map(np.asarray, variables["params"]))
+    head = params["head"]
+    head["cls_logits"]["kernel"] = head["cls_logits"]["kernel"] * np.float32(cls_gain)
+    head["cls_logits"]["bias"] = np.full_like(head["cls_logits"]["bias"], cls_bias)
+    head["bbox_reg"]["kernel"] = head["bbox_reg"]["kernel"] * np.float32(8.0)
+    params, frozen = perturb_norms(params, variables.get("frozen", {}),
+                                   np.random.default_rng(seed))
+    variables = {"params": params, **({"frozen": frozen} if frozen else {})}
+    tmodel = RetinaNet(RetinaNetConfig(**cfg))
     tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
     return jmodel, variables, tmodel.eval()
 
