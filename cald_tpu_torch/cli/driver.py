@@ -46,10 +46,16 @@ where one is given; LossNet is initialised from ``seed + 1``, and cycle k's
 VAE and discriminator from ``seed + k`` and ``seed + k + 1`` (Flax's
 initial distributions, ``models/init.py::lecun_init_``).
 
-Not ported yet (they raise ``NotImplementedError`` before any work): COCO
-(ROADMAP queue 1 item 5), the multi-process launch (item 6: ``WORLD_SIZE``
-above 1, or the JAX package's ``JAX_COORDINATOR_ADDRESS`` or
-``CALD_TPU_DISTRIBUTED=1``) and ``--score-shrink-slice`` (item 8).
+Datasets: VOC2007 (trainval/test), VOC2012 (trainval/val) and COCO
+(train2017/val2017, evaluated by the COCO protocol). The model's class count
+is the training set's (``len(class_names)``); ``cfg.num_classes`` (81 for
+COCO, 21 for VOC) sizes CALD's class statistics and SSM's ``clslambda``, as
+in the JAX package.
+
+Not ported yet (they raise ``NotImplementedError`` before any work): the
+multi-process launch (ROADMAP queue 1 item 6: ``WORLD_SIZE`` above 1, or the
+JAX package's ``JAX_COORDINATOR_ADDRESS`` or ``CALD_TPU_DISTRIBUTED=1``) and
+``--score-shrink-slice`` (item 8).
 
 Known differences: ``--pretrained-backbone`` with ``--norm group`` raises
 ``ValueError`` before any work. The JAX package fails too, later and with
@@ -77,6 +83,7 @@ from cald_tpu_torch.convert.torchvision_import import load_backbone_, load_state
 from cald_tpu_torch.data.batching import (
     create_aspect_ratio_groups, default_canvases, grouped_batch_indices, make_padded_batch,
 )
+from cald_tpu_torch.data.coco import get_coco
 from cald_tpu_torch.data.loader import BatchLoader, decode_image
 from cald_tpu_torch.data.pool import ALPoolState
 from cald_tpu_torch.data.records import ImageRecord
@@ -120,6 +127,15 @@ def stream_generator(device: torch.device, a: int, b: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state >> np.uint64(1)))
 
 
+def check_single_process():
+    """Refuse a multi-process launch, which the port does not run yet."""
+    if (int(os.environ.get("WORLD_SIZE", "1") or 1) > 1
+            or os.environ.get("JAX_COORDINATOR_ADDRESS")
+            or os.environ.get("CALD_TPU_DISTRIBUTED") == "1"):
+        raise NotImplementedError("multi-process runs are not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
+
+
 def _check_supported(cfg: ALConfig):
     """Refuse, before any work, what the port does not run yet, and
     ``--pretrained-backbone`` under group norm, which has no weights to
@@ -128,16 +144,10 @@ def _check_supported(cfg: ALConfig):
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.model not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
-    if "coco" in cfg.dataset:
-        raise NotImplementedError("COCO is not ported yet (ROADMAP queue 1 item 5)")
     if cfg.score_shrink_slice:
         raise NotImplementedError("--score-shrink-slice is not ported yet "
                                   "(ROADMAP queue 1 item 8)")
-    if (int(os.environ.get("WORLD_SIZE", "1") or 1) > 1
-            or os.environ.get("JAX_COORDINATOR_ADDRESS")
-            or os.environ.get("CALD_TPU_DISTRIBUTED") == "1"):
-        raise NotImplementedError("multi-process runs are not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
+    check_single_process()
     if cfg.norm == "group" and cfg.pretrained_backbone:
         raise ValueError("--pretrained-backbone imports FrozenBatchNorm statistics; "
                          "a --norm group backbone has none")
@@ -149,7 +159,7 @@ def build_datasets(cfg: ALConfig):
     if cfg.dataset == "voc2012":
         return get_voc2012(cfg.data_path, "trainval"), get_voc2012(cfg.data_path, "val")
     if "coco" in cfg.dataset:
-        raise NotImplementedError("COCO is not ported yet (ROADMAP queue 1 item 5)")
+        return get_coco(cfg.data_path, "train"), get_coco(cfg.data_path, "val")
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
@@ -242,10 +252,11 @@ def _train_loader(cfg: ALConfig, dataset, pool: ALPoolState, canvases, group_ids
                     canvases=canvases, group_ids=group_ids, seed=cfg.seed + cycle * 1000 + epoch)
 
 
-def _task_epoch(cfg: ALConfig, step_fn, loader, *, cycle: int, epoch: int, device):
+def _task_epoch(cfg: ALConfig, step_fn, loader, *, cycle: int, epoch: int, device) -> dict:
+    """One epoch of task steps; returns the last step's metrics."""
     draw = generator_gumbel(stream_generator(device, cfg.seed, epoch))
-    train_one_epoch(step_fn, loader, draw, device=device, epoch=epoch, cycle=cycle,
-                    print_freq=cfg.print_freq)
+    return train_one_epoch(step_fn, loader, draw, device=device, epoch=epoch, cycle=cycle,
+                           print_freq=cfg.print_freq)
 
 
 def _tensors(batch, device) -> list[torch.Tensor]:
@@ -663,7 +674,8 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
             test_loader = _loaders(cfg, test_ds, range(len(test_ds)),
                                    batch_size=cfg.score_batch_size, train=False,
                                    canvases=canvases, group_ids=test_group_ids)
-            stats = evaluate(model, test_loader, test_ds, kind=cfg.eval_kind, device=device)
+            stats = evaluate(model, test_loader, test_ds, kind=cfg.eval_kind, device=device,
+                             classwise=cfg.classwise)
         _sync(device)
         t_eval = time.time()
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from cald_tpu_torch.engine.coco_eval import coco_evaluate_detections
 from cald_tpu_torch.engine.voc_eval import voc_evaluate_detections
 
 
@@ -37,14 +38,15 @@ def run_inference(model, loader, *, device, score_thresh: float = 0.0) -> list[d
     return list(results.values())
 
 
-def evaluate(model, loader, dataset, *, kind: str, device, print_fn=print) -> dict:
-    """kind: 'voc' ('coco' is not ported yet). Returns the evaluator's
-    metric dict."""
-    if kind == "coco":
-        raise NotImplementedError("COCO evaluation is not ported yet (ROADMAP queue 1 item 5)")
-    if kind != "voc":
+def evaluate(model, loader, dataset, *, kind: str, device, classwise: bool = False,
+             print_fn=print) -> dict:
+    """kind: 'voc' or 'coco' (``classwise`` adds COCO's per-class AP table).
+    Returns the evaluator's metric dict."""
+    if kind not in ("voc", "coco"):
         raise ValueError(f"unknown eval kind {kind!r}")
     results = run_inference(model, loader, device=device)
     for r in results:
         r["image_id"] = dataset.record(r["dataset_index"]).image_id
-    return voc_evaluate_detections(results, dataset, print_fn=print_fn)
+    if kind == "voc":
+        return voc_evaluate_detections(results, dataset, print_fn=print_fn)
+    return coco_evaluate_detections(results, dataset, classwise=classwise, print_fn=print_fn)

@@ -24,10 +24,10 @@ from __future__ import annotations
 import dataclasses
 import os
 
-import numpy as np
 import torch
 from torch import nn
 
+from cald_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from cald_tpu_torch.models.anchors import ASPECT_RATIOS, FRCNN_SIZES, generate_anchors
 from cald_tpu_torch.models.detections import Detections
 from cald_tpu_torch.models.fpn import FPN
@@ -41,10 +41,6 @@ from cald_tpu_torch.models.roi_heads import (
 from cald_tpu_torch.models.rpn import RPNHead, rpn_loss, select_proposals
 from cald_tpu_torch.ops.roi_align import roi_levels
 from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel, window_roi_align
-
-# torchvision GeneralizedRCNNTransform defaults
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 # ResNet backbones: (blocks per stage, width)
 BACKBONES = {"resnet50": ((3, 4, 6, 3), 64), "tiny": ((1, 1, 1, 1), 16)}

@@ -38,13 +38,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cald_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from cald_tpu_torch.models.anchors import (
     ASPECT_RATIOS, MOBILE_RETINA_SIZES, RETINA_SIZES, generate_anchors,
 )
 from cald_tpu_torch.models.detections import Detections
-from cald_tpu_torch.models.faster_rcnn import (
-    BACKBONES, IMAGENET_MEAN, IMAGENET_STD, normalized_input,
-)
+from cald_tpu_torch.models.faster_rcnn import BACKBONES, normalized_input
 from cald_tpu_torch.models.fpn import FPN
 from cald_tpu_torch.models.layers import Conv
 from cald_tpu_torch.models.matcher import BETWEEN, Draw, match_anchors

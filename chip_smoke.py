@@ -129,13 +129,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
      phase writes as ``.npz``: one K1 per detect, one K2 and one K3 per
      step, and K1 against its plain version on the model's two stride-32
      levels (limits as phase 3's, the levels scaled to unit deviation); (d)
-     ``retina_mobilenet`` from the same file, no RoI kernel.
+     ``retina_mobilenet`` from the same file, no RoI kernel;
+ 15. COCO at full width: (a) ``al_loop`` on a synthetic COCO tree that
+     ``make_coco`` writes as ``.npy`` (48 train2017 and 16 val2017 images,
+     half 480x640 and half 640x480, 80 categories, 1-8 boxes of 16-200 px),
+     at the resolved COCO sizes (min 800 / max 1333: canvases 832x1344 and
+     1344x832, 81 classes, pool cap 10000): R50-FPN, frozen norms, bf16,
+     from a backbone written as phase 11's but calibrated on this data,
+     CALD with FCDR, 2 cycles of 1 epoch, batch
+     4, 16 initial images, budget 8, score batch 8 (``coco_al_phase``'s
+     docstring lists the checks), the COCO evaluator's seconds per image, a
+     warm CALD score call (B=8) and training step (B=4) on each canvas, the
+     peak device memory; (b) K1 (B=8, N=1000) and K2/K3 (B=4, S=512)
+     against their plain versions on both COCO canvases, at phases 3 and
+     6's limits, with their times and bounds; (c) ``cli.train``'s ``main``
+     on the same tree: one epoch with ``--output-dir``, then ``--resume``
+     for a second. The native JPEG decoder is not built here: the card has
+     no libjpeg headers or library.
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
 K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
 CALD 'FCDRGS' score call and K2/K3's per group-norm step from phase 12;
 K1's per ``faster_mobilenet`` detect and K2/K3's per step,
-``launches_mobilenet``, from phase 14),
+``launches_mobilenet``, from phase 14; K1's per COCO detect and K2/K3's
+per COCO step, ``launches_coco``, and their times on COCO's canvases,
+``coco``, from phase 15),
 its time (K5 and K6: on weights restaged once; ``ms_with_restaging``
 through the wrappers) and its plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type,
@@ -258,38 +276,47 @@ def roi_index_bytes(rois, valid, levels) -> int:
     return rois.numel() * 4 + valid.numel() + levels.numel() * 4
 
 
-def roi_inputs(device, b: int = BATCH, n: int = 1000, c: int = 256, seed: int = SEED):
-    """Unit-normal P2..P5 levels of the 640x1024 canvas, rois with ~30%
-    invalid slots, plus border-crossing, tiny, whole-image, overhanging and
-    extreme-aspect rois."""
+def special_rois(valid_hw) -> list:
+    """Border-crossing, tiny, whole-image, overhanging and extreme-aspect
+    rois for a valid region (on VOC's 600x1000: [980, 580, 1040, 640], ...)."""
+    vh, vw = valid_hw
+    return [[-20, -10, 60, 50], [vw - 20, vh - 20, vw + 40, vh + 40], [100, 100, 100.5, 100.5],
+            [0, 0, vw, vh], [vw - 40, 10, vw + 160, 40], [5, 5, 6, 300]]
+
+
+def roi_inputs(device, b: int = BATCH, n: int = 1000, c: int = 256, seed: int = SEED,
+               canvas=CANVAS, valid_hw=VALID_HW):
+    """Unit-normal P2..P5 levels of the canvas (640x1024 unless given), rois
+    over the valid region with ~30% invalid slots, plus ``special_rois``."""
     import torch
 
     rng = np.random.default_rng(seed)
-    shapes = [(CANVAS[0] // s, CANVAS[1] // s) for s in (4, 8, 16, 32)]
+    shapes = [(canvas[0] // s, canvas[1] // s) for s in (4, 8, 16, 32)]
     feats = [torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(np.float32)).to(device)
              for h, w in shapes]
-    cx = rng.uniform(0, VALID_HW[1], (b, n))
-    cy = rng.uniform(0, VALID_HW[0], (b, n))
+    cx = rng.uniform(0, valid_hw[1], (b, n))
+    cy = rng.uniform(0, valid_hw[0], (b, n))
     sz = rng.uniform(4, 500, (b, n))
     ar = rng.uniform(0.25, 4.0, (b, n))
     w, h = sz * np.sqrt(ar), sz / np.sqrt(ar)
     rois = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).astype(np.float32)
-    rois[:, :6] = [[-20, -10, 60, 50], [980, 580, 1040, 640], [100, 100, 100.5, 100.5],
-                   [0, 0, 1000, 600], [960, 10, 1160, 40], [5, 5, 6, 300]]
+    rois[:, :6] = special_rois(valid_hw)
     valid = rng.uniform(size=(b, n)) > 0.3
     valid[:, :6] = True
     rois[~valid] = 0.0
     return feats, torch.from_numpy(rois).to(device), torch.from_numpy(valid).to(device)
 
 
-def kernel_phase(device) -> dict:
+def kernel_phase(device, canvas=CANVAS, valid_hw=VALID_HW, label: str = "kernel") -> dict:
+    """K1 against its plain version at B=8, N=1000 on the canvas (phase 3;
+    phase 15(b) on COCO's canvases)."""
     import torch
 
     from cald_tpu_torch.ops import roi_align as plain
     from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel
 
     scales = SCALES
-    feats, rois, valid = roi_inputs(device)
+    feats, rois, valid = roi_inputs(device, canvas=canvas, valid_hw=valid_hw)
     want = plain.multi_scale_roi_align(feats, rois, spatial_scales=scales, valid=valid)
     got = roi_align_kernel(feats, rois, valid, spatial_scales=scales)
     torch.cuda.synchronize()
@@ -309,7 +336,8 @@ def kernel_phase(device) -> dict:
     plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align(
         feats_bf, rois, spatial_scales=scales, valid=valid), 5)
     ms = cuda_ms(k1, 20)
-    print(f"kernel: roi_align B={BATCH} N=1000 C=256 valid={int(valid.sum())}: "
+    print(f"{label}: roi_align B={BATCH} N=1000 C=256 on {canvas[0]}x{canvas[1]} "
+          f"valid={int(valid.sum())}: "
           f"f32 max_abs_err={err_f32:.3e} (atol 1e-4), bf16 max_abs_err={err_bf16:.3e} "
           f"(atol 5e-2), invalid max={max(zero_f32, zero_bf16)}; bf16 kernel {ms_first:.4f} ms "
           f"first, {ms:.4f} ms after the plain version, plain {plain_ms:.4f} ms")
@@ -326,23 +354,23 @@ def kernel_phase(device) -> dict:
                     n_ops, F32_OPS_S)}
 
 
-def gt_boxes(rng, b: int):
-    """Seeded ground truth: 1-8 boxes per image inside VALID_HW, in MAX_BOXES
-    slots, labels in 1..NUM_CLASSES-1."""
+def gt_boxes(rng, b: int, valid_hw=VALID_HW):
+    """Seeded ground truth: 1-8 boxes per image inside the valid region, in
+    MAX_BOXES slots, labels in 1..NUM_CLASSES-1."""
     boxes = np.zeros((b, MAX_BOXES, 4), np.float32)
     labels = np.zeros((b, MAX_BOXES), np.int32)
     valid = np.zeros((b, MAX_BOXES), bool)
     for i in range(b):
         k = int(rng.integers(1, 9))
         wh = rng.uniform(32, 400, (k, 2))
-        xy = rng.uniform(0, 1, (k, 2)) * (np.array(VALID_HW[::-1]) - wh)
+        xy = rng.uniform(0, 1, (k, 2)) * (np.array(valid_hw[::-1]) - wh)
         boxes[i, :k] = np.concatenate([xy, xy + wh], -1)
         labels[i, :k] = rng.integers(1, NUM_CLASSES, k)
         valid[i, :k] = True
     return boxes, labels, valid
 
 
-def train_roi_inputs(device, c: int = 256, seed: int = SEED):
+def train_roi_inputs(device, c: int = 256, seed: int = SEED, canvas=CANVAS, valid_hw=VALID_HW):
     """The training path's RoIAlign inputs: unit-normal P2..P5 levels of the
     canvas and TRAIN_SAMPLES rois per image made like the sampler's: a
     quarter positives (seeded gt boxes, jittered), random negatives, the
@@ -352,12 +380,12 @@ def train_roi_inputs(device, c: int = 256, seed: int = SEED):
 
     rng = np.random.default_rng(seed + 10)
     b, n = TRAIN_BATCH, TRAIN_SAMPLES
-    shapes = [(CANVAS[0] // s, CANVAS[1] // s) for s in (4, 8, 16, 32)]
+    shapes = [(canvas[0] // s, canvas[1] // s) for s in (4, 8, 16, 32)]
     feats = [torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(np.float32)).to(device)
              for h, w in shapes]
-    gt, _, gv = gt_boxes(rng, b)
-    cx = rng.uniform(0, VALID_HW[1], (b, n))
-    cy = rng.uniform(0, VALID_HW[0], (b, n))
+    gt, _, gv = gt_boxes(rng, b, valid_hw)
+    cx = rng.uniform(0, valid_hw[1], (b, n))
+    cy = rng.uniform(0, valid_hw[0], (b, n))
     sz = rng.uniform(4, 500, (b, n))
     ar = rng.uniform(0.25, 4.0, (b, n))
     w, h = sz * np.sqrt(ar), sz / np.sqrt(ar)
@@ -367,22 +395,23 @@ def train_roi_inputs(device, c: int = 256, seed: int = SEED):
         src = gt[i, rng.integers(0, gv[i].sum(), n_pos)]
         size = (src[:, 2:] - src[:, :2]).repeat(2, axis=1)
         rois[i, 6:6 + n_pos] = src + rng.normal(0, 0.08, (n_pos, 4)) * size
-    rois[:, :6] = [[-20, -10, 60, 50], [980, 580, 1040, 640], [100, 100, 100.5, 100.5],
-                   [0, 0, 1000, 600], [960, 10, 1160, 40], [5, 5, 6, 300]]
+    rois[:, :6] = special_rois(valid_hw)
     valid = rng.uniform(size=(b, n)) > 0.25
     valid[:, :6] = True
     return (feats, torch.from_numpy(rois.astype(np.float32)).to(device),
             torch.from_numpy(valid).to(device))
 
 
-def train_kernel_phase(device) -> list[dict]:
-    """K2 and K3 against their plain versions at the training shapes."""
+def train_kernel_phase(device, canvas=CANVAS, valid_hw=VALID_HW,
+                       label: str = "train kernels") -> list[dict]:
+    """K2 and K3 against their plain versions at the training shapes (phase
+    6; phase 15(b) on COCO's canvases)."""
     import torch
 
     from cald_tpu_torch.ops import roi_align as plain
     from cald_tpu_torch.ops.roi_align_cuda import roi_align_bwd_kernel, roi_align_train_fwd_kernel
 
-    feats, rois, valid = train_roi_inputs(device)
+    feats, rois, valid = train_roi_inputs(device, canvas=canvas, valid_hw=valid_hw)
     levels = plain.roi_levels(rois, SCALES).contiguous()
     shapes = [f.shape for f in feats]
     cot = torch.randn((*rois.shape[:2], 7, 7, feats[0].shape[-1]), device=device,
@@ -417,15 +446,17 @@ def train_kernel_phase(device) -> list[dict]:
     bwd_ms = cuda_ms(lambda: bwd(cot), 20)
     bwd_plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align_backward(
         cot, rois, valid, levels, shapes, spatial_scales=SCALES), 5)
-    _, u_rois, u_valid = roi_inputs(device, b=TRAIN_BATCH, n=TRAIN_SAMPLES, c=1)
+    _, u_rois, u_valid = roi_inputs(device, b=TRAIN_BATCH, n=TRAIN_SAMPLES, c=1, canvas=canvas,
+                                    valid_hw=valid_hw)
     u_levels = plain.roi_levels(u_rois, SCALES).contiguous()
     bwd_uniform_ms = cuda_ms(lambda: roi_align_bwd_kernel(
         cot, u_rois, u_valid, u_levels, shapes, spatial_scales=SCALES), 20)
-    print(f"train kernels: B={TRAIN_BATCH} S={TRAIN_SAMPLES} C=256 valid={int(valid.sum())}: "
+    print(f"{label}: B={TRAIN_BATCH} S={TRAIN_SAMPLES} C=256 on {canvas[0]}x{canvas[1]} "
+          f"valid={int(valid.sum())}: "
           f"K2 f32 max_abs_err={fwd_f32:.3e} (atol 1e-4), bf16 {fwd_bf16:.3e} (atol 5e-2); "
           f"K3 f32 max_abs_err={bwd_f32:.3e} (atol 1e-4), bf16 {bwd_bf16:.3e} (atol 5e-2 + "
           f"1e-2 rel); invalid out max={zero}, invalid-only gradient max={dead_max}")
-    print(f"train kernels: K2 bf16 {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms; "
+    print(f"{label}: K2 bf16 {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms; "
           f"K3 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; K3 on uniform rois "
           f"{bwd_uniform_ms:.4f} ms")
     if not (fwd_f32 <= 1e-4 and fwd_bf16 <= 5e-2 and bwd_f32 <= 1e-4 and bwd_bf16_ok
@@ -1101,7 +1132,8 @@ class StageCounts:
     adversary epochs inside its training) each kernel's launches, the
     training steps and their losses (the task steps, LL4AL's joint steps and
     VAAL's VAE + discriminator steps apart), the detects (stage, images),
-    the first layers' parameters of each trained model, and the peak device
+    the (stage, canvas) of every detect and task step (``canvases``), the
+    first layers' parameters of each trained model, and the peak device
     memory of each score call. Every count is set to 0 on entry and read on
     exit (``launches``)."""
 
@@ -1112,6 +1144,7 @@ class StageCounts:
         self.stages = {"train": [], "eval": [], "score": [], "adversary": []}
         self.steps, self.losses, self.detects, self.trained, self.score_peak = [], [], [], [], []
         self.ll_steps, self.vaal_steps = [], []
+        self.canvases = set()
         self.stage = None
 
     def _counted(self, stage, fn):
@@ -1145,6 +1178,7 @@ class StageCounts:
 
         def epoch_counting(step_fn, *args, **kwargs):
             def step(*a):
+                self.canvases.add((self.stage, tuple(a[0].shape[1:3])))
                 m = step_fn(*a)
                 self.losses.append({k: float(v) for k, v in m.items()})
                 self.steps.append(1)
@@ -1168,6 +1202,7 @@ class StageCounts:
 
         def detect_counting(model, images, valid_hw):
             self.detects.append((self.stage, images.shape[0]))
+            self.canvases.add((self.stage, tuple(images.shape[1:3])))
             return self._detects[type(model)](model, images, valid_hw)
 
         patches = {"train_cycle": self._counted("train", driver.train_cycle),
@@ -1208,6 +1243,29 @@ AL_TEST_IMAGES = 16
 AL_IMAGE_HW = (375, 500)         # a typical VOC image
 
 
+def write_calibrated_backbone(cfg, dataset, device) -> None:
+    """Write ``cfg.pretrained_backbone``, the backbone users would pass as
+    ImageNet weights: the seeded init with its frozen norms calibrated on
+    one batch of ``dataset`` (phases 4 and 7)."""
+    import torch
+
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.convert.torchvision_import import backbone_state_dict
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.models.init import random_init_
+
+    model, _ = driver.build_model(cfg, len(dataset.class_names))
+    random_init_(model, cfg.seed)
+    model.to(device)
+    groups = create_aspect_ratio_groups(dataset.aspect_ratios(), cfg.aspect_ratio_group_factor)
+    calib = next(iter(driver._loaders(cfg, dataset, range(TRAIN_BATCH), batch_size=TRAIN_BATCH,
+                                      train=False, group_ids=groups,
+                                      canvases=default_canvases(cfg.min_size, cfg.max_size))))
+    calibrate_norms_(model, torch.from_numpy(calib.images).to(device),
+                     torch.from_numpy(calib.valid_hw).to(device))
+    torch.save(backbone_state_dict(model), cfg.pretrained_backbone)
+
+
 def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
     """The active-learning loop on the card (phase 11): R50-FPN trained from
     a torchvision-layout backbone written here, CALD_TPU_ROI_GROUP=8, two
@@ -1217,10 +1275,8 @@ def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
 
     from cald_tpu_torch.cli import driver
     from cald_tpu_torch.cli.config import ALConfig
-    from cald_tpu_torch.convert.torchvision_import import backbone_state_dict
     from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
     from cald_tpu_torch.engine.checkpoint import load_checkpoint
-    from cald_tpu_torch.models.init import random_init_
     from cald_tpu_torch.strategies.cald import CALDConfig, make_cald_score_fn, score_pool
 
     train_root, datasets = _al_data(workdir)
@@ -1231,22 +1287,11 @@ def al_loop_phase(device, kernels: dict, card: str, workdir: str) -> dict:
                    pretrained_backbone=os.path.join(workdir, "backbone.pt"),
                    device=device.type).resolve()
 
-    # the backbone users would pass as ImageNet weights: the seeded init with
-    # its frozen norms calibrated on one batch of this data (phases 4 and 7)
     num_classes = len(datasets[0].class_names)
-    model, _ = driver.build_model(cfg, num_classes)
-    random_init_(model, cfg.seed)
-    model.to(device)
+    write_calibrated_backbone(cfg, datasets[0], device)
     canvases = default_canvases(cfg.min_size, cfg.max_size)
     groups = create_aspect_ratio_groups(datasets[0].aspect_ratios(),
                                         cfg.aspect_ratio_group_factor)
-    calib = next(iter(driver._loaders(cfg, datasets[0], range(TRAIN_BATCH),
-                                      batch_size=TRAIN_BATCH, train=False, canvases=canvases,
-                                      group_ids=groups)))
-    calibrate_norms_(model, torch.from_numpy(calib.images).to(device),
-                     torch.from_numpy(calib.valid_hw).to(device))
-    torch.save(backbone_state_dict(model), cfg.pretrained_backbone)
-    del model
 
     os.environ["CALD_TPU_ROI_GROUP"] = "8"
     counts = StageCounts(driver, kernels, device)
@@ -2342,6 +2387,428 @@ def mobilenet_phase(device, kernels: dict, card: str, workdir: str) -> dict:
                          "roi_align_bwd": train_k["roi_align_bwd"]}}
 
 
+COCO_TRAIN_IMAGES = 48
+COCO_TEST_IMAGES = 16
+COCO_IMAGE_HW = ((480, 640), (640, 480))     # (h, w): half landscape, half portrait
+COCO_BOX_SIZE = (16.0, 200.0)                # box sides drawn from, in image pixels
+COCO_MIN_MAX = (800, 1333)                   # ALConfig.resolve's COCO sizes
+COCO_CANVASES = ((832, 1344), (1344, 832))   # default_canvases(800, 1333)
+COCO_VALID_HW = ((800, 1067), (1067, 800))   # 480x640 at 800 / 480
+
+
+def _coco_data(workdir: str):
+    """Phase 15's synthetic COCO tree (48 train2017 and 16 val2017 ``.npy``
+    images, 80 categories, 1-8 boxes of 16-200 px an image) under
+    ``workdir``; returns (root, (train, val) datasets)."""
+    from cald_tpu_torch.data.coco import get_coco
+    from cald_tpu_torch.data.synthetic import make_coco
+
+    root = os.path.join(workdir, "coco")
+    for split, n, seed in (("train", COCO_TRAIN_IMAGES, SEED), ("val", COCO_TEST_IMAGES, SEED + 1)):
+        make_coco(root, num_images=n, hw=COCO_IMAGE_HW, num_classes=80, seed=seed, split=split,
+                  image_format="npy", max_objects=8, box_size=COCO_BOX_SIZE)
+    return root, (get_coco(root, "train"), get_coco(root, "val"))
+
+
+def coco_kernel_phase(device, card: str) -> dict:
+    """Phase 15(b): K1 (B=8, N=1000) and K2/K3 (B=4, S=512) against their
+    plain versions on both COCO canvases, at phases 3 and 6's limits."""
+    out = {}
+    for canvas, valid_hw in zip(COCO_CANVASES, COCO_VALID_HW):
+        key = f"{canvas[0]}x{canvas[1]}"
+        k1 = kernel_phase(device, canvas, valid_hw, label=f"coco kernel {key}")
+        k2, k3 = train_kernel_phase(device, canvas, valid_hw, label=f"coco train kernels {key}")
+        out[key] = {"roi_align": k1, "roi_align_train_fwd": k2, "roi_align_bwd": k3}
+        for name, e in out[key].items():
+            print(f"coco kernels {key}: {name} {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+                  f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}, "
+                  f"{e['bound_bytes'] / 1e6:.1f} MB), share {e['bound_ms'] / e['ms']:.3f}, "
+                  f"max_abs_err {e['max_abs_err']:.3e} on {card}")
+    return out
+
+
+COCO_LOGIT_STDS = (1.0, 1.5, 2.0, 3.0, 4.0)  # class-logit spreads tried for the loaded score call
+COCO_EVAL_DETS = 100    # jittered ground-truth detections an image for the loaded evaluator
+
+
+def spread_classes_(model, images, valid_hw, stds, seed: int) -> tuple[float, float]:
+    """Redraw the box predictor's class weights (seeded normal, bias 0)
+    and scale them so that one detect's class logits have standard
+    deviation ``std`` across the classes (mean over the proposals), for
+    each ``std`` of ``stds``; keep the one that puts the most candidates
+    above the 0.05 filter (``postprocess_load``). The classes of a proposal
+    then score like normal draws, a few of COCO's 80 pass the filter for
+    most proposals, and the postprocess gets more candidates than its NMS
+    input cap (the caller checks it). A trained model's background row
+    dominates: scaling its weights leaves every foreground score below
+    0.05. Returns (std, gain)."""
+    import torch
+
+    cls = model.box_predictor.cls_score
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        cls.weight.copy_(torch.randn(cls.weight.shape, generator=g).to(cls.weight))
+        cls.bias.zero_()
+    logits = []
+    hook = cls.register_forward_hook(lambda m, a, out: logits.append(out.float()))
+    try:
+        with torch.inference_mode():
+            model.detect(images, valid_hw)
+    finally:
+        hook.remove()
+    unit = logits[0].std(dim=-1).mean().item()
+    best, weight = None, cls.weight.detach().clone()
+    for std in stds:
+        with torch.no_grad():
+            cls.weight.copy_(weight * (std / unit))
+        n = sum(postprocess_load(model, images, valid_hw)["candidates"])
+        if best is None or n > best[0]:
+            best = (n, std)
+    with torch.no_grad():
+        cls.weight.copy_(weight * (best[1] / unit))
+    return best[1], best[1] / unit
+
+
+def postprocess_load(model, images, valid_hw) -> dict:
+    """One detect's postprocess work: the valid proposals per image, the
+    candidates above the score filter per image, the NMS input cap they are
+    cut to, and the valid detections per image."""
+    import torch
+
+    from cald_tpu_torch.models import faster_rcnn, roi_heads
+
+    seen, orig_nms, orig_post = [], roi_heads.batched_nms, faster_rcnn.postprocess_detections
+
+    def counting_nms(*a, **k):
+        seen.append((k["valid"].sum(dim=1).tolist(), k["pre_nms_size"]))
+        return orig_nms(*a, **k)
+
+    def counting_post(class_logits, box_regression, proposals, prop_valid, *a, **k):
+        seen.append(prop_valid.sum(dim=1).tolist())
+        return orig_post(class_logits, box_regression, proposals, prop_valid, *a, **k)
+
+    roi_heads.batched_nms, faster_rcnn.postprocess_detections = counting_nms, counting_post
+    try:
+        with torch.inference_mode():
+            dets = model.detect(images, valid_hw)
+    finally:
+        roi_heads.batched_nms, faster_rcnn.postprocess_detections = orig_nms, orig_post
+    proposals, (candidates, cap) = seen
+    return {"proposals": proposals, "candidates": candidates, "cap": cap,
+            "valid": dets.valid.sum(dim=1).tolist()}
+
+
+def profile_ms(fn) -> dict:
+    """One call of ``fn`` (after a warm-up call) under ``torch.profiler``:
+    the wall milliseconds to the synchronize (the profiler's overhead
+    included), the device-busy milliseconds (the union of the CUDA events'
+    intervals), the number of device events, and the five kernels with the
+    most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end, by_name = 0.0, -math.inf, {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "device_ms": busy / 1e3, "events": len(spans),
+            "top": [(name[:60], ms) for name, ms in top]}
+
+
+def jittered_detections(dataset, per_image: int, seed: int) -> list[dict]:
+    """``per_image`` detections an image for the COCO evaluator: ground-truth
+    boxes moved by 10% of their size, a fifth of them relabelled at random,
+    scores uniform in (0.05, 1)."""
+    rng = np.random.default_rng(seed)
+    num_classes = len(dataset.class_names)
+    results = []
+    for i in range(len(dataset)):
+        rec = dataset.record(i)
+        src = rng.integers(0, len(rec.boxes), per_image)
+        wh = np.tile(rec.boxes[src, 2:] - rec.boxes[src, :2], 2)
+        labels = np.where(rng.uniform(size=per_image) < 0.2,
+                          rng.integers(1, num_classes, per_image), rec.labels[src])
+        results.append({"dataset_index": i, "image_id": rec.image_id,
+                        "boxes": (rec.boxes[src] + rng.normal(0, 0.1, wh.shape) * wh).astype(
+                            np.float32),
+                        "scores": rng.uniform(0.05, 1.0, per_image).astype(np.float32),
+                        "labels": labels.astype(np.int32)})
+    return results
+
+
+def coco_al_phase(device, kernels: dict, card: str, workdir: str) -> dict:
+    """Phase 15(a): ``al_loop`` on the synthetic COCO tree at COCO's
+    resolved sizes (min 800 / max 1333, canvases 832x1344 and 1344x832, 81
+    classes, pool cap 10000): Faster R-CNN R50-FPN, frozen norms, bf16, from
+    a backbone written as phase 11's is but calibrated on this data (phase
+    11's, calibrated on VOC's smooth images, starts COCO's random-pixel
+    images at a classifier loss of ~60 and diverges within 3 steps), CALD
+    with FCDR, 2 cycles of 1 epoch, batch 4, 16 initial images, budget 8,
+    score batch 8. Checks finite losses, the
+    labeled set grown by the budget, the 12 COCO stats finite, both canvases
+    in training, evaluation and scoring, one K2 and one K3 per step, one K1
+    per detect and the expected detects per stage; then a warm CALD score
+    call (B=8) and a warm training step (B=4) on each canvas, the COCO
+    evaluator's seconds per image and the peak device memory. Cycle 0's
+    model finds nothing above 0.05 on these images, so its score calls and
+    evaluations run on empty work: the score call is timed again on a copy
+    with its class head redrawn and spread (``spread_classes_``: more
+    candidates an image than the postprocess's 2048 NMS input cap, checked,
+    and 100 detections), the evaluator again on 100 jittered ground-truth
+    detections an image (AP50 above 0 checked), and one warm step and one
+    loaded score call are traced with ``torch.profiler`` (device-busy
+    against wall time)."""
+    import torch
+
+    from cald_tpu_torch.augment.suite import generator_draw
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.cli.config import ALConfig
+    from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
+    from cald_tpu_torch.data.pool import ALPoolState
+    from cald_tpu_torch.engine import evaluate as ev
+    from cald_tpu_torch.engine.checkpoint import load_checkpoint
+    from cald_tpu_torch.engine.optim import RESNET_FROZEN_L3, make_sgd
+    from cald_tpu_torch.engine.train import make_train_step
+    from cald_tpu_torch.models.matcher import generator_gumbel
+    from cald_tpu_torch.strategies.cald import CALDConfig, make_cald_score_fn
+
+    root, datasets = _coco_data(workdir)
+    train_ds, test_ds = datasets
+    cfg = ALConfig(dataset="coco", data_path=root, strategy="cald", augs="FCDR", cycles=2,
+                   epochs=1, batch_size=TRAIN_BATCH, init_num=16, budget_num=8,
+                   score_batch_size=BATCH, workers=4, print_freq=1,
+                   output_dir=os.path.join(workdir, "out"),
+                   pretrained_backbone=os.path.join(workdir, "backbone.pt"),
+                   device=device.type).resolve()
+    canvases = default_canvases(cfg.min_size, cfg.max_size)
+    if not ((cfg.min_size, cfg.max_size) == COCO_MIN_MAX
+            and (cfg.num_classes, cfg.pool_cap) == (81, 10000)
+            and tuple((c.height, c.width) for c in canvases) == COCO_CANVASES
+            and len(train_ds.class_names) == 81):
+        raise AssertionError(f"COCO's resolved sizes are not the reference's: {cfg}, {canvases}")
+    write_calibrated_backbone(cfg, train_ds, device)
+    groups = create_aspect_ratio_groups(train_ds.aspect_ratios(), cfg.aspect_ratio_group_factor)
+    test_groups = create_aspect_ratio_groups(test_ds.aspect_ratios(),
+                                             cfg.aspect_ratio_group_factor)
+    # the detects al_loop must run: one per evaluation batch, two per score batch
+    n_eval = len(driver._loaders(cfg, test_ds, range(len(test_ds)), batch_size=BATCH, train=False,
+                                 canvases=canvases, group_ids=test_groups))
+    subset = ALPoolState.initial(len(train_ds), cfg.init_num, cfg.seed).subsample_pool(
+        cfg.pool_cap, np.random.default_rng(cfg.seed + 100))
+    n_score = len(driver._loaders(cfg, train_ds, subset, batch_size=BATCH, train=False,
+                                  canvases=canvases, group_ids=groups))
+
+    eval_s = []
+    coco_eval = ev.coco_evaluate_detections
+
+    def timed_eval(results, dataset, **kw):
+        t0 = time.perf_counter()
+        stats = coco_eval(results, dataset, **kw)
+        eval_s.append(time.perf_counter() - t0)
+        return stats
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = StageCounts(driver, kernels, device)
+    ev.coco_evaluate_detections = timed_eval
+    try:
+        with counts:
+            t0 = time.perf_counter()
+            history = driver.al_loop(cfg, datasets=datasets)
+            wall = time.perf_counter() - t0
+    finally:
+        ev.coco_evaluate_detections = coco_eval
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = len(counts.steps)
+    by_stage = {st: sum(1 for s, _ in counts.detects if s == st) for st in ("eval", "score")}
+    for h in history:
+        e = h["eval"]
+        print(f"coco al loop: cycle {h['cycle']}: labeled {h['labeled']}, AP {e['AP']:.4f}, "
+              f"AP50 {e['AP50']:.4f}; wall {h['time_s']:.2f} s (train {h['split_s']['train']:.2f}, "
+              f"eval {h['split_s']['eval']:.2f}, score {h['split_s']['score']:.2f}) on {card}; "
+              f"stats {json.dumps(e)}")
+    per_image = [s / len(test_ds) for s in eval_s]
+    print(f"coco al loop: {steps} training steps, detects {by_stage} (want eval "
+          f"{2 * n_eval}, score {2 * n_score}); launches by stage {json.dumps(counts.stages)}; "
+          f"canvases {sorted(counts.canvases, key=str)}; COCO evaluator "
+          f"{[f'{s:.3f}' for s in eval_s]} s over {len(test_ds)} images "
+          f"({[f'{s * 1e3:.2f}' for s in per_image]} ms/image); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB (score calls {max(counts.score_peak, default=0) / 2 ** 30:.2f}); "
+          f"{wall:.2f} s on {card}")
+    train_k, infer_k = counts.total("train"), counts.total("eval", "score")
+    if not (steps > 0 and train_k["roi_align_train_fwd"] == steps
+            and train_k["roi_align_bwd"] == steps and train_k["roi_align"] == 0
+            and train_k["roi_align_group_fwd"] == 0):
+        raise AssertionError(f"training did not launch K2 and K3 once per step: {train_k}")
+    if not (infer_k["roi_align"] == len(counts.detects)
+            and by_stage == {"eval": 2 * n_eval, "score": 2 * n_score}
+            and infer_k["roi_align_train_fwd"] == 0 and infer_k["roi_align_bwd"] == 0):
+        raise AssertionError(f"evaluation and scoring did not launch K1 once per detect: "
+                             f"{infer_k}, {by_stage}")
+    want_seen = {(st, c) for st in ("train", "eval", "score") for c in COCO_CANVASES}
+    if not want_seen <= counts.canvases:
+        raise AssertionError(f"not every stage ran on both canvases: "
+                             f"{sorted(counts.canvases, key=str)}")
+    if not all(math.isfinite(v) for d in counts.losses for v in d.values()):
+        raise AssertionError("non-finite training losses")
+    picked = history[0]["labeled"] - cfg.init_num
+    if not (cfg.budget_num <= picked <= int(cfg.mr * cfg.budget_num)
+            and history[1]["labeled"] == history[0]["labeled"]):
+        raise AssertionError(f"the labeled set did not grow by the budget: {history}")
+    if not all(len(h["eval"]) == 12 and all(math.isfinite(v) for v in h["eval"].values())
+               for h in history):
+        raise AssertionError("the 12 COCO stats are not all finite")
+
+    # warm CALD score calls (B=8) and training steps (B=4) on each canvas,
+    # from cycle 0's model
+    model, _ = driver.build_model(cfg, len(train_ds.class_names))
+    model.to(device)
+    load_checkpoint(os.path.join(cfg.output_dir, "cycle_0"), model)
+    score_fn = make_cald_score_fn(model, CALDConfig(), cfg.num_classes)
+    loaded, _ = driver.build_model(cfg, len(train_ds.class_names))
+    loaded.to(device)
+    load_checkpoint(os.path.join(cfg.output_dir, "cycle_0"), loaded)
+    loaded_fn = make_cald_score_fn(loaded, CALDConfig(), cfg.num_classes)
+    draw = generator_draw(torch.Generator(device=device).manual_seed(SEED + 15))
+    gumbel = generator_gumbel(torch.Generator(device=device).manual_seed(SEED + 16))
+    step = make_train_step(model, make_sgd(model, FIXED_LR, frozen_prefixes=RESNET_FROZEN_L3))
+    score_batches = {(b.images.shape[1], b.images.shape[2]): b for b in driver._loaders(
+        cfg, train_ds, range(len(train_ds)), batch_size=BATCH, train=False, canvases=canvases,
+        group_ids=groups) if len(b.image_idx) == BATCH}
+    train_batches = {(b.images.shape[1], b.images.shape[2]): b for b in driver._loaders(
+        cfg, train_ds, range(len(train_ds)), batch_size=TRAIN_BATCH, train=True,
+        canvases=canvases, group_ids=groups, seed=SEED) if len(b.image_idx) == TRAIN_BATCH}
+    timing, profiles = {}, {}
+    for canvas in COCO_CANVASES:
+        sb, tb = score_batches[canvas], train_batches[canvas]
+        images = torch.from_numpy(sb.images).to(device)
+        valid_hw = torch.from_numpy(sb.valid_hw).to(device)
+        if not timing:
+            spread, gain = spread_classes_(loaded, images, valid_hw, COCO_LOGIT_STDS,
+                                           SEED + 18)
+        score_fn(images, valid_hw, draw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls = [_warm_ms(lambda: score_fn(images, valid_hw, draw), 1) for _ in range(3)]
+        score_peak = torch.cuda.max_memory_allocated()
+        tbatch = [torch.from_numpy(np.asarray(a)).to(device) for a in (
+            tb.images, tb.valid_hw, tb.boxes, tb.labels, tb.box_valid)]
+        steps_ms = [_warm_ms(lambda: step(*tbatch, gumbel), 1) for _ in range(3)]
+        load = postprocess_load(loaded, images, valid_hw)
+        loaded_calls = [_warm_ms(lambda: loaded_fn(images, valid_hw, draw), 1) for _ in range(3)]
+        key = f"{canvas[0]}x{canvas[1]}"
+        timing[key] = {"score_ms_min": min(calls), "score_ms_median": float(np.median(calls)),
+                       "score_peak_bytes": score_peak, "step_ms_min": min(steps_ms),
+                       "step_ms_median": float(np.median(steps_ms)),
+                       "loaded_score_ms_min": min(loaded_calls),
+                       "loaded_score_ms_median": float(np.median(loaded_calls)),
+                       "logit_std": spread, **load}
+        print(f"coco time {key}: CALD score call of B={BATCH} min {min(calls):.1f} / median "
+              f"{np.median(calls):.1f} ms ({BATCH / np.median(calls) * 1e3:.2f} images/s), peak "
+              f"{score_peak / 2 ** 30:.2f} GiB; training step of B={TRAIN_BATCH} min "
+              f"{min(steps_ms):.1f} / median {np.median(steps_ms):.1f} ms on {card}")
+        print(f"coco time {key}: loaded CALD score call of B={BATCH} (class head redrawn, "
+              f"logits spread to std {spread}, gain {gain:.3g}) min "
+              f"{min(loaded_calls):.1f} / median {np.median(loaded_calls):.1f} ms; base detect: "
+              f"valid proposals per image "
+              f"{load['proposals']}, candidates above 0.05 {load['candidates']} (NMS input cap "
+              f"{load['cap']}), valid detections {load['valid']} on {card}")
+        if not (min(load["candidates"]) > load["cap"] and min(load["valid"]) > 0):
+            raise AssertionError(f"the loaded score call's detect is not past the NMS input "
+                                 f"cap: {load}")
+        if not profiles:
+            profiles = {"step": profile_ms(lambda: step(*tbatch, gumbel)),
+                        "loaded_score": profile_ms(lambda: loaded_fn(images, valid_hw, draw))}
+            for name, prof in profiles.items():
+                unprofiled = (timing[key]["step_ms_median"] if name == "step"
+                              else timing[key]["loaded_score_ms_median"])
+                print(f"coco profile {key} {name}: wall {prof['wall_ms']:.1f} ms under the "
+                      f"profiler ({unprofiled:.1f} ms without), device busy "
+                      f"{prof['device_ms']:.1f} ms ({prof['device_ms'] / unprofiled:.3f} of the "
+                      f"unprofiled wall), {prof['events']} device events; top "
+                      f"{[(n, round(ms, 2)) for n, ms in prof['top']]} on {card}")
+    del model, score_fn, step, loaded, loaded_fn
+    torch.cuda.empty_cache()
+
+    quiet = lambda *_: None  # noqa: E731
+    t0 = time.perf_counter()
+    loaded_stats = ev.coco_evaluate_detections(
+        jittered_detections(test_ds, COCO_EVAL_DETS, SEED + 17), test_ds, print_fn=quiet)
+    loaded_eval_s = time.perf_counter() - t0
+    print(f"coco evaluator on {COCO_EVAL_DETS} jittered ground-truth detections an image: "
+          f"{loaded_eval_s:.3f} s over {len(test_ds)} images "
+          f"({loaded_eval_s / len(test_ds) * 1e3:.2f} ms/image), AP {loaded_stats['AP']:.4f}, "
+          f"AP50 {loaded_stats['AP50']:.4f} on {card}")
+    if not (len(loaded_stats) == 12 and loaded_stats["AP50"] > 0
+            and all(math.isfinite(v) for v in loaded_stats.values())):
+        raise AssertionError(f"the COCO evaluator on jittered ground truth: {loaded_stats}")
+    return {"history": history, "steps": steps, "launches": counts.launches,
+            "detects": by_stage, "eval_s": eval_s, "eval_s_per_image": per_image,
+            "peak_bytes": peak, "timing": timing, "profiles": profiles,
+            "loaded_eval_s_per_image": loaded_eval_s / len(test_ds), "wall_s": wall, "root": root,
+            "backbone": cfg.pretrained_backbone, "train_launches": train_k}
+
+
+def coco_train_cli_phase(device, kernels: dict, card: str, workdir: str, root: str,
+                         backbone: str) -> dict:
+    """Phase 15(c): ``python -m cald_tpu_torch.cli.train``'s ``main`` on the
+    phase's COCO tree: one epoch with ``--output-dir``, then ``--resume``
+    from its ``last/`` for the second; finite losses, the epoch carried
+    across the resume, the 12 COCO stats finite, one K2 and one K3 per step
+    and one K1 per evaluation detect."""
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.cli import train as train_cli
+    from cald_tpu_torch.engine.checkpoint import peek_checkpoint
+
+    out = os.path.join(workdir, "train_out")
+    argv = ["--dataset", "coco", "--data-path", root, "-b", str(TRAIN_BATCH),
+            "--score-batch-size", str(BATCH), "-j", "4", "--print-freq", "4",
+            "--pretrained-backbone", backbone, "--output-dir", out, "--device", device.type]
+    runs = []
+    t0 = time.perf_counter()
+    for extra in (["--epochs", "1"], ["--epochs", "2", "--resume", os.path.join(out, "last")]):
+        counts = StageCounts(driver, kernels, device)
+        with counts:
+            run = train_cli.main(argv + extra)
+        meta = peek_checkpoint(os.path.join(out, "last"))[2]
+        runs.append((run, meta, counts))
+        steps = len(counts.steps)
+        print(f"coco cli.train {' '.join(extra)}: start epoch {run['start_epoch']}, losses "
+              f"{run['losses']}, saved epoch {meta['epoch']}, {steps} steps, "
+              f"{len(counts.detects)} detects, launches {counts.launches}, AP "
+              f"{run['eval']['AP']:.4f}")
+        k = counts.launches
+        if not (steps > 0 and k["roi_align_train_fwd"] == steps and k["roi_align_bwd"] == steps
+                and k["roi_align"] == len(counts.detects) > 0 and k["roi_align_group_fwd"] == 0):
+            raise AssertionError(f"cli.train: not one K2/K3 per step and one K1 per detect: {k}")
+        if not all(math.isfinite(v) for d in counts.losses for v in d.values()):
+            raise AssertionError("cli.train: non-finite training losses")
+        if not (len(run["eval"]) == 12 and all(math.isfinite(v) for v in run["eval"].values())):
+            raise AssertionError("cli.train: the 12 COCO stats are not all finite")
+    (first, meta0, _), (second, meta1, _) = runs
+    if not (first["start_epoch"] == 0 and list(first["losses"]) == [0] and meta0["epoch"] == 0
+            and second["start_epoch"] == 1 and list(second["losses"]) == [1]
+            and meta1["epoch"] == 1):
+        raise AssertionError("cli.train: the epoch did not carry across --resume")
+    wall = time.perf_counter() - t0
+    print(f"coco cli.train: two runs {wall:.2f} s on {card}")
+    return {"losses": {**first["losses"], **second["losses"]}, "eval": second["eval"],
+            "steps": [len(c.steps) for _, _, c in runs], "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -2444,6 +2911,13 @@ def main() -> int:
         retina = retina_phase(device, all_kernels, card, p14, al["backbone"])
         mobile = mobilenet_phase(device, all_kernels, card, p14)
         print(f"phase 14: {time.perf_counter() - t14:.2f} s on {card}")
+
+        t15 = time.perf_counter()
+        p15 = os.path.join(workdir, "p15")
+        coco = coco_al_phase(device, all_kernels, card, p15)
+        coco_kernels = coco_kernel_phase(device, card)
+        coco_train_cli_phase(device, all_kernels, card, p15, coco["root"], coco["backbone"])
+        print(f"phase 15: {time.perf_counter() - t15:.2f} s on {card}")
     ml = mobile["launches"]
     kernel["launches_mobilenet"] = {"launches": ml["roi_align"], "detects": ml["detects"],
                                     "per_detect": ml["roi_align"] / ml["detects"]}
@@ -2457,6 +2931,17 @@ def main() -> int:
                                    "joint_steps": ll4al["joint_steps"]}
         entry["launches_vaal"] = {"launches": vaal["train_launches"][name],
                                   "task_steps": vaal["task_steps"]}
+
+    coco_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes", "max_abs_err",
+                 "max_abs_err_f32")
+    cl = coco["launches"]
+    kernel["launches_coco"] = {"launches": cl["roi_align"], "detects": coco["detects"]}
+    for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
+        entry["launches_coco"] = {"launches": cl[name], "steps": coco["steps"]}
+    for entry, name in zip((kernel, *train_kernels),
+                           ("roi_align", "roi_align_train_fwd", "roi_align_bwd")):
+        entry["coco"] = {key: {k: v[name][k] for k in coco_keys}
+                         for key, v in coco_kernels.items()}
 
     print(json.dumps({"kernels": [kernel, train_kernels[0], train_kernels[1], group_kernel,
                                   *bneck_kernels]}))

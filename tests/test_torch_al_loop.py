@@ -33,6 +33,7 @@ from cald_tpu.engine.evaluate import evaluate as jevaluate
 from cald_tpu.engine.voc_eval import voc_evaluate_detections as jvoc_eval
 from cald_tpu.strategies.cald import labeled_class_counts as jlabeled_class_counts
 from cald_tpu.strategies.random_strategy import random_select as jrandom_select
+from cald_tpu_torch import native as tnative
 from cald_tpu_torch.cli import config, driver, main
 from cald_tpu_torch.data import batching
 from cald_tpu_torch.data.loader import BatchLoader
@@ -67,9 +68,11 @@ def voc(tmp_path_factory):
 
 @pytest.fixture
 def pil_decode(monkeypatch):
-    """The JAX loader decodes JPEGs with Pillow (its native decoder, where
-    built, is another codec and is not ported)."""
+    """Both loaders decode JPEGs with Pillow: their native decoders, where
+    built, are another codec (tests/test_torch_native.py holds the two
+    native paths against each other)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def test_config_defaults_match_jax():
@@ -232,8 +235,11 @@ def test_evaluate_matches_jax(voc, pil_decode):
                        print_fn=quiet)
     for k in ("mAP", "AP50", "AP75", "recall"):
         assert abs(m_got[k] - m_want[k]) < 1e-6, k
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        evaluate(tmodel, [], ds, kind="coco", device="cpu")
+    # COCO runs (tests/test_torch_coco.py holds it against the JAX package):
+    # its 12 stats over the VOC records
+    m_coco = evaluate(tmodel, BatchLoader(ds, batches, **args), ds, kind="coco", device="cpu",
+                      print_fn=quiet)
+    assert len(m_coco) == 12 and all(np.isfinite(v) for v in m_coco.values())
 
 
 def _cfg(root, **kw):
@@ -296,14 +302,17 @@ def test_al_loop_random_matches_jax_picks(voc):
 
 def test_unported_options_raise(voc, monkeypatch):
     """What the port does not run yet raises before any work, naming its
-    ROADMAP queue item: COCO (5), multi-process launches (6) and
-    --score-shrink-slice (8); an unknown model is a ValueError."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+    ROADMAP queue item: multi-process launches (6) and --score-shrink-slice
+    (8); an unknown model is a ValueError. COCO runs: its datasets are
+    built (and read from the tree, which a VOC root lacks)."""
+    with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
         driver.build_datasets(_cfg(voc["npy"], dataset="coco").resolve())
+    driver._check_supported(_cfg(voc["npy"], dataset="coco").resolve())
     _no_work(monkeypatch)
-    for kw, item in (({"score_shrink_slice": True}, 8), ({"dataset": "coco"}, 5)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-            driver.al_loop(_cfg(voc["npy"], **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        driver.al_loop(_cfg(voc["npy"], score_shrink_slice=True))
+    with pytest.raises(AssertionError, match="al_loop started work"):
+        driver.al_loop(_cfg(voc["npy"], dataset="coco"))
     for env in ({"WORLD_SIZE": "2"}, {"JAX_COORDINATOR_ADDRESS": "localhost:1234"},
                 {"CALD_TPU_DISTRIBUTED": "1"}):
         with monkeypatch.context() as m:

@@ -188,13 +188,15 @@ def test_jax_initialized_vae_gives_the_same_recon():
     assert np.abs(bad.detach().numpy() - np.asarray(recon)).max() > 1e-2
 
 
-# the modules of the AL loop and its strategies, each of which must import on its own
+# the modules of the AL loop, its strategies, COCO, the native decoder and the
+# trainer, each of which must import on its own
 AL_LOOP_MODULES = (
-    "cli.config", "cli.driver", "cli.main", "convert.torchvision_import", "data.batching",
-    "data.loader", "data.pool", "data.records", "data.synthetic", "data.transforms",
-    "data.voc", "engine.checkpoint", "engine.evaluate", "engine.voc_eval", "models.init",
-    "models.lossnet", "models.mobilenetv3", "models.retinanet", "models.vae", "strategies.ll4al", "strategies.random_strategy",
-    "strategies.ssm", "strategies.vaal")
+    "cli.config", "cli.driver", "cli.main", "cli.train", "convert.torchvision_import",
+    "data.batching", "data.coco", "data.loader", "data.masks", "data.pool", "data.records",
+    "data.synthetic", "data.transforms", "data.voc", "engine.checkpoint", "engine.coco_eval",
+    "engine.evaluate", "engine.voc_eval", "models.init", "models.lossnet",
+    "models.mobilenetv3", "models.retinanet", "models.vae", "native",
+    "strategies.ll4al", "strategies.random_strategy", "strategies.ssm", "strategies.vaal")
 
 
 def test_port_imports_no_jax():

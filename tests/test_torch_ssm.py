@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from cald_tpu import native
+from cald_tpu_torch import native as tnative
 from cald_tpu.data.loader import decode_image as jdecode
 from cald_tpu.data.voc import get_voc2007 as jget_voc2007
 from cald_tpu.models.roi_heads import ssm_postprocess_detections as jssm_postprocess
@@ -162,9 +163,10 @@ def stub_detect(images):
 
 @pytest.fixture
 def voc_jpg(tmp_path, monkeypatch):
-    # both packages decode the JPEGs with Pillow (the JAX package's native
-    # decoder, where built, is another codec)
+    # both packages decode the JPEGs with Pillow (their native decoders,
+    # where built, are another codec)
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     return make_learnable_voc(tmp_path / "voc", num_images=16, hw=(60, 80), seed=2)
 
 
