@@ -52,17 +52,35 @@ is the training set's (``len(class_names)``); ``cfg.num_classes`` (81 for
 COCO, 21 for VOC) sizes CALD's class statistics and SSM's ``clslambda``, as
 in the JAX package.
 
-Not ported yet (they raise ``NotImplementedError`` before any work): the
-multi-process launch (ROADMAP queue 1 item 6: ``WORLD_SIZE`` above 1, or the
-JAX package's ``JAX_COORDINATOR_ADDRESS`` or ``CALD_TPU_DISTRIBUTED=1``) and
-``--score-shrink-slice`` (item 8).
+Multi-process data parallelism (``cald_tpu_torch.parallel``): launched by
+torchrun (``WORLD_SIZE`` above 1), by the JAX package's
+``JAX_COORDINATOR_ADDRESS`` + ``JAX_NUM_PROCESSES`` + ``JAX_PROCESS_ID`` or by
+``CALD_TPU_DISTRIBUTED=1``, every rank runs this loop on its own card
+(``cuda:LOCAL_RANK`` unless ``--device`` names one), as the JAX package's
+processes run it over their global mesh:
+  * training: each rank loads its stride of the labeled set
+    (``process_shard``), all ranks take the agreed minimum step count
+    (``_sync_len``), the weights start from rank 0's, every step averages the
+    gradients (the global batch's step) and its sampling noise is the rank's
+    rows of the global batch's draw (``process_draw``);
+  * evaluation: each rank detects its stride of the test set and the results
+    are gathered before the evaluator runs;
+  * scoring: each rank scores its stride of the pool subset and the scores
+    are merged by a scatter and a sum over the ranks, so every rank makes the
+    same selection; SSM's cross-validation runs on the whole subset on every
+    rank;
+  * rank 0 alone writes the checkpoints, the first-cycle model and the
+    profile; ``--resume`` reads on every rank.
 
 Known differences: ``--pretrained-backbone`` with ``--norm group`` raises
 ``ValueError`` before any work. The JAX package fails too, later and with
 another message: its importer fills FrozenBatchNorm leaves only. ``--skip``
 with ``ll4al`` raises ``ValueError`` when it would load the first-cycle
 checkpoint, which holds no LossNet; the JAX package fails at the cycle's
-scoring with a ``KeyError``.
+scoring with a ``KeyError``. Under more than one process LL4AL's schedules
+count the agreed steps per epoch, as every other schedule does; the JAX
+package's count the rank's own loader (the same number unless the ranks'
+aspect-ratio groups batch differently).
 """
 
 from __future__ import annotations
@@ -103,6 +121,10 @@ from cald_tpu_torch.models.matcher import generator_gumbel
 from cald_tpu_torch.models.retinanet import (
     RetinaNet, RetinaNetConfig, retinanet_mobilenet, retinanet_resnet50_fpn_cal,
 )
+from cald_tpu_torch.parallel import (
+    all_gather_objects, broadcast_module_, initialize_distributed, local_rank, process_count,
+    process_draw, process_index, process_merge_sum, process_shard,
+)
 from cald_tpu_torch.strategies.cald import (
     CALDConfig, cald_select, labeled_class_counts, make_cald_score_fn, score_pool,
 )
@@ -127,27 +149,28 @@ def stream_generator(device: torch.device, a: int, b: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state >> np.uint64(1)))
 
 
-def check_single_process():
-    """Refuse a multi-process launch, which the port does not run yet."""
-    if (int(os.environ.get("WORLD_SIZE", "1") or 1) > 1
-            or os.environ.get("JAX_COORDINATOR_ADDRESS")
-            or os.environ.get("CALD_TPU_DISTRIBUTED") == "1"):
-        raise NotImplementedError("multi-process runs are not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
+def run_device(cfg: ALConfig) -> torch.device:
+    """Join a multi-process launch (``initialize_distributed``: NCCL on the
+    card, gloo for ``--device cpu``) and return the run's device:
+    ``cuda:LOCAL_RANK`` for a bare ``--device cuda`` under more than one
+    process, else ``--device``."""
+    device = torch.device(cfg.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
+    initialize_distributed(backend=None if device.type == "cuda" else "gloo")
+    if device.type == "cuda" and device.index is None and process_count() > 1:
+        device = torch.device("cuda", local_rank())
+    return device
 
 
 def _check_supported(cfg: ALConfig):
-    """Refuse, before any work, what the port does not run yet, and
+    """Refuse, before any work, an unknown strategy or model, and
     ``--pretrained-backbone`` under group norm, which has no weights to
     import into."""
     if cfg.strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.model not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.score_shrink_slice:
-        raise NotImplementedError("--score-shrink-slice is not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
-    check_single_process()
     if cfg.norm == "group" and cfg.pretrained_backbone:
         raise ValueError("--pretrained-backbone imports FrozenBatchNorm statistics; "
                          "a --norm group backbone has none")
@@ -197,6 +220,11 @@ def build_model(cfg: ALConfig, num_classes: int):
 
 def _loaders(cfg: ALConfig, dataset, indices, *, batch_size, train: bool, canvases,
              group_ids, seed=0) -> BatchLoader:
+    """A training loader (shuffled, flipped) takes this rank's stride of
+    ``indices`` (``process_shard``, the DistributedSampler); an evaluation or
+    scoring loader takes ``indices`` as they are."""
+    if train:
+        indices = process_shard(indices)
     rng = np.random.default_rng(seed) if train else None
     batches = grouped_batch_indices(list(indices), group_ids, batch_size, rng)
     return BatchLoader(
@@ -204,6 +232,26 @@ def _loaders(cfg: ALConfig, dataset, indices, *, batch_size, train: bool, canvas
         max_size=cfg.max_size, max_boxes=cfg.max_boxes,
         transform=random_horizontal_flip if train else None,
         num_workers=cfg.workers, seed=seed)
+
+
+def _sync_len(n: int) -> int:
+    """The ranks' agreed per-epoch step count: the least of their loader
+    lengths, so no rank waits in a collective for another's extra batch
+    (identity at one process)."""
+    return n if process_count() == 1 else min(all_gather_objects(int(n)))
+
+
+class _Lockstep:
+    """A training loader cut to the agreed step count."""
+
+    def __init__(self, loader):
+        self.loader, self.n = loader, _sync_len(len(loader))
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        return itertools.islice(iter(self.loader), self.n)
 
 
 def _apply_pretrained_backbone(model, cfg: ALConfig):
@@ -217,10 +265,11 @@ def _apply_pretrained_backbone(model, cfg: ALConfig):
 
 def _steps_per_epoch(cfg: ALConfig, dataset, pool: ALPoolState, canvases, group_ids, *,
                      cycle: int) -> int:
-    """Batches of the cycle's training loader (at least 1): the schedules'
-    epoch length."""
-    return max(len(_loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
-                            canvases=canvases, group_ids=group_ids, seed=cfg.seed + cycle)), 1)
+    """Agreed batches of the cycle's training loader (at least 1): the
+    schedules' epoch length."""
+    return max(_sync_len(len(_loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size,
+                                      train=True, canvases=canvases, group_ids=group_ids,
+                                      seed=cfg.seed + cycle))), 1)
 
 
 def _sgd(cfg: ALConfig, module, base_lr: float, steps_per_epoch: int, frozen_prefixes=()):
@@ -237,24 +286,26 @@ def _sgd(cfg: ALConfig, module, base_lr: float, steps_per_epoch: int, frozen_pre
 def _fresh_state(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, canvases,
                  group_ids, *, cycle: int, device):
     """A fresh model, optimizer and schedule for a cycle (the reference
-    re-creates the model every cycle). Returns (model, optimizer, scheduler)."""
+    re-creates the model every cycle), rank 0's weights on every rank.
+    Returns (model, optimizer, scheduler)."""
     model, frozen_prefixes = build_model(cfg, num_classes)
     random_init_(model, cfg.seed)
     _apply_pretrained_backbone(model, cfg)
-    model.to(device)
+    broadcast_module_(model.to(device))
     steps = _steps_per_epoch(cfg, dataset, pool, canvases, group_ids, cycle=cycle)
     return (model, *_sgd(cfg, model, cfg.lr, steps, frozen_prefixes))
 
 
 def _train_loader(cfg: ALConfig, dataset, pool: ALPoolState, canvases, group_ids, *,
-                  cycle: int, epoch: int) -> BatchLoader:
-    return _loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
-                    canvases=canvases, group_ids=group_ids, seed=cfg.seed + cycle * 1000 + epoch)
+                  cycle: int, epoch: int) -> _Lockstep:
+    return _Lockstep(_loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size,
+                              train=True, canvases=canvases, group_ids=group_ids,
+                              seed=cfg.seed + cycle * 1000 + epoch))
 
 
 def _task_epoch(cfg: ALConfig, step_fn, loader, *, cycle: int, epoch: int, device) -> dict:
     """One epoch of task steps; returns the last step's metrics."""
-    draw = generator_gumbel(stream_generator(device, cfg.seed, epoch))
+    draw = process_draw(generator_gumbel(stream_generator(device, cfg.seed, epoch)))
     return train_one_epoch(step_fn, loader, draw, device=device, epoch=epoch, cycle=cycle,
                            print_freq=cfg.print_freq)
 
@@ -284,7 +335,7 @@ def _new_lossnet(model, cfg: ALConfig, device) -> LossNet:
     lossnet = LossNet(num_levels=min(4, len(model.cfg.strides)),
                       in_channels=model.cfg.fpn_channels)
     lecun_init_(lossnet, cfg.seed + 1)
-    return lossnet.to(device)
+    return broadcast_module_(lossnet.to(device))
 
 
 def _train_cycle_ll4al(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, canvases,
@@ -304,8 +355,8 @@ def _train_cycle_ll4al(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolSta
         loader = _train_loader(cfg, dataset, pool, canvases, group_ids, cycle=cycle, epoch=epoch)
         metrics = None
         for bi, batch in enumerate(loader):
-            draw = generator_gumbel(stream_generator(
-                device, cfg.seed + 3, (cycle * 1000 + epoch) * 100000 + bi))
+            draw = process_draw(generator_gumbel(stream_generator(
+                device, cfg.seed + 3, (cycle * 1000 + epoch) * 100000 + bi)))
             metrics = step(*_tensors(batch, device), draw,
                            detach_features=epoch >= cfg.task_epochs)
         last = "empty loader" if metrics is None else f"loss {float(metrics['loss']):.4f}"
@@ -321,25 +372,30 @@ def _make_vaal_trainer(cfg: ALConfig, steps_per_epoch: int, cycle: int, device) 
         return (*_sgd(cfg, vae, cfg.lr / 10, steps_per_epoch),
                 *_sgd(cfg, disc, cfg.lr, steps_per_epoch))
 
-    return VAALTrainer(optimizers, seed=cfg.seed + cycle, device=device)
+    trainer = VAALTrainer(optimizers, seed=cfg.seed + cycle, device=device)
+    broadcast_module_(trainer.vae)
+    broadcast_module_(trainer.disc)
+    return trainer
 
 
 def _vaal_adversary_epoch(cfg: ALConfig, trainer: VAALTrainer, dataset, pool: ALPoolState,
                           canvases, group_ids, *, cycle: int, epoch: int, device):
     """One epoch of VAE + discriminator steps: one per labeled batch, each
     with the next unlabeled batch, the unlabeled loader cycled when it is
-    shorter (vaal_train.py:99-148)."""
+    shorter (vaal_train.py:99-148); under more than one process, the agreed
+    step counts of both loaders."""
     seed = cfg.seed + cycle * 1000 + epoch
     lab_loader = _loaders(cfg, dataset, pool.labeled, batch_size=cfg.batch_size, train=True,
                           canvases=canvases, group_ids=group_ids, seed=seed)
     unlab_loader = _loaders(cfg, dataset, pool.unlabeled, batch_size=cfg.batch_size,
                             train=True, canvases=canvases, group_ids=group_ids, seed=seed + 1)
-    if len(unlab_loader) == 0:
+    if _sync_len(len(unlab_loader)) == 0:
         return
-    draw = generator_draw(stream_generator(device, cfg.seed + 31, cycle * 1000 + epoch))
+    draw = process_draw(generator_draw(stream_generator(device, cfg.seed + 31,
+                                                        cycle * 1000 + epoch)))
     vloss = dloss = float("nan")
     unlab_iter = itertools.cycle(unlab_loader)
-    for lb in lab_loader:
+    for lb in _Lockstep(lab_loader):
         ub = next(unlab_iter)
         vloss, dloss = trainer.train_step(torch.from_numpy(lb.images).to(device),
                                           torch.from_numpy(ub.images).to(device), draw)
@@ -485,7 +541,13 @@ def score_and_select(cfg: ALConfig, model: Detector, dataset, pool: ALPoolState,
     """Dispatch on ``cfg.strategy``; returns the chosen DATASET indices.
     ``strategy_state`` carries what a strategy keeps between cycles: SSM's
     gamma and clslambda (updated here; defaults when absent), LL4AL's
-    ``lossnet`` and VAAL's ``vaal`` trainer (both required)."""
+    ``lossnet`` and VAAL's ``vaal`` trainer (both required).
+
+    Under more than one process the batched scorers take this rank's stride
+    of the pool subset and the scores are merged (a scatter into the whole
+    subset and a sum over the ranks), so every rank selects alike; SSM's
+    cross-validation draws from ``rng``, and runs on the whole subset on
+    every rank."""
     strategy_state = {} if strategy_state is None else strategy_state
     rng = np.random.default_rng(cfg.seed + 100 + cycle)
     subset = (pool.subsample_pool(cfg.pool_cap, rng) if cfg.pool_cap
@@ -495,37 +557,53 @@ def score_and_select(cfg: ALConfig, model: Detector, dataset, pool: ALPoolState,
         return subset[random_select(len(subset), budget, rng)]
     if cfg.strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
-    loader = _loaders(cfg, dataset, subset, batch_size=cfg.score_batch_size, train=False,
-                      canvases=canvases, group_ids=group_ids)
+    local_pos = np.arange(len(subset))[process_index()::process_count()]
+    local = subset[local_pos]
+
+    def merge(vals: np.ndarray) -> np.ndarray:
+        """(len(local), ...) scores of this rank -> (len(subset), ...)."""
+        if process_count() == 1:
+            return vals
+        full = np.zeros((len(subset),) + vals.shape[1:], vals.dtype)
+        full[local_pos] = vals
+        return process_merge_sum(full)
+
+    def pool_loader(indices):
+        return _loaders(cfg, dataset, indices, batch_size=cfg.score_batch_size, train=False,
+                        canvases=canvases, group_ids=group_ids)
+
     if cfg.strategy == "ll4al":
         fn = make_ll_score_fn(model, strategy_state["lossnet"])
-        return subset[ll_select(ll_scores(fn, loader, subset, device), budget)]
+        pred = merge(ll_scores(fn, pool_loader(local), local, device))
+        return subset[ll_select(pred, budget)]
     if cfg.strategy == "vaal":
         trainer: VAALTrainer = strategy_state["vaal"]
-        pos = {int(i): p for p, i in enumerate(subset)}
-        scores = np.zeros(len(subset))
-        for batch in loader:
+        pos = {int(i): p for p, i in enumerate(local)}
+        scores = np.zeros(len(local))
+        for batch in pool_loader(local):
             sc = trainer.unlabeled_scores(torch.from_numpy(batch.images).to(device))
             for i, idx in enumerate(batch.image_idx):
                 scores[pos[int(idx)]] = sc[i]
-        return subset[vaal_select(scores, budget)]
+        return subset[vaal_select(merge(scores), budget)]
     if cfg.strategy == "ssm":
-        return subset[_ssm_select(cfg, model, dataset, pool, subset, loader, canvases, rng,
-                                  strategy_state, device)]
+        return subset[_ssm_select(cfg, model, dataset, pool, subset, pool_loader(subset),
+                                  canvases, rng, strategy_state, device)]
     generator = stream_generator(device, cfg.seed + 17, cycle)
     scoring_model = _scoring_model(cfg, model)
+    loader = pool_loader(local)
     if cfg.strategy == "ltc":
-        u = run_ltc(make_ltc_score_fn(scoring_model), loader, subset, device)
+        u = merge(run_ltc(make_ltc_score_fn(scoring_model), loader, local, device))
         return subset[np.argsort(u, kind="stable")[:budget]]
     if cfg.strategy == "lsc":
-        s = lsc_scores(make_lsc_score_fn(scoring_model), loader, subset, generator)
+        s = merge(lsc_scores(make_lsc_score_fn(scoring_model), loader, local, generator))
         return subset[np.argsort(s, kind="stable")[:budget]]
     ccfg = CALDConfig(aug_names=tuple(expand_aug_string(cfg.augs)), base_point=cfg.bp,
-                      mutual_range=cfg.mr, uniform=cfg.uniform, no_mutual=cfg.no_mutual)
+                      mutual_range=cfg.mr, uniform=cfg.uniform, no_mutual=cfg.no_mutual,
+                      shrink_slice=cfg.score_shrink_slice)
     score_fn = make_cald_score_fn(scoring_model, ccfg, cfg.num_classes)
-    consistency, corrs = score_pool(score_fn, loader, subset, generator)
+    consistency, corrs = score_pool(score_fn, loader, local, generator)
     labeled_mean = labeled_class_counts(dataset, pool.labeled, cfg.num_classes - 1)
-    return subset[cald_select(consistency, corrs, labeled_mean, budget, ccfg)]
+    return subset[cald_select(merge(consistency), merge(corrs), labeled_mean, budget, ccfg)]
 
 
 def _carry_meta(cycle: int, strategy_state: dict) -> dict:
@@ -557,12 +635,12 @@ def _sync(device):
 
 
 def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
-    """Run the AL experiment; returns one result dict per cycle."""
+    """Run the AL experiment; returns one result dict per cycle (the same
+    on every rank)."""
     cfg = cfg.resolve()
     _check_supported(cfg)
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
+    device = run_device(cfg)
+    rank0 = process_index() == 0
     train_ds, test_ds = datasets if datasets is not None else build_datasets(cfg)
     num_classes = len(train_ds.class_names)
     canvases = default_canvases(cfg.min_size, cfg.max_size)
@@ -594,7 +672,7 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
             history.append({"cycle": cycle, "resumed": True})
             continue
         t0 = time.time()
-        if cfg.profile_dir and not profiled:
+        if cfg.profile_dir and not profiled and rank0:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -663,7 +741,8 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
                                                       device=device)
         _sync(device)
         t_train = time.time()
-        if cycle == 0 and first_ckpt and not (cfg.skip and os.path.isdir(first_ckpt)):
+        if (cycle == 0 and first_ckpt and not (cfg.skip and os.path.isdir(first_ckpt))
+                and rank0):
             save_checkpoint(first_ckpt, model, optimizer, scheduler, pool=pool,
                             meta={"cycle": 0})
 
@@ -671,7 +750,7 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
         if resuming_here:
             stats = {"resumed": True}   # eval ran before the checkpoint was saved
         elif cfg.eval_every_cycle:
-            test_loader = _loaders(cfg, test_ds, range(len(test_ds)),
+            test_loader = _loaders(cfg, test_ds, process_shard(range(len(test_ds)), pad=False),
                                    batch_size=cfg.score_batch_size, train=False,
                                    canvases=canvases, group_ids=test_group_ids)
             stats = evaluate(model, test_loader, test_ds, kind=cfg.eval_kind, device=device,
@@ -679,7 +758,7 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
         _sync(device)
         t_eval = time.time()
 
-        if cfg.output_dir and not resuming_here:
+        if cfg.output_dir and not resuming_here and rank0:
             save_checkpoint(os.path.join(cfg.output_dir, f"cycle_{cycle}"), model, optimizer,
                             scheduler, pool=pool,
                             rng={"seed": cfg.seed, "torch_cpu": torch.get_rng_state()},

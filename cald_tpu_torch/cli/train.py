@@ -17,11 +17,16 @@ shuffled by ``default_rng(seed + e)`` and its flips; its sampling noise is
 ``stream_generator(device, seed, e)`` (``cli/driver.py``), so a resumed run
 repeats the uninterrupted one.
 
+Multi-process data parallelism, launched as for ``cli.main``
+(``torchrun --nproc-per-node N -m cald_tpu_torch.cli.train ...`` or the JAX
+package's launch variables), trains the global batch of every rank's
+stride of the training set for the agreed step count (``cli/driver.py``);
+rank 0 alone writes ``last/``, and the test split is evaluated in strides
+whose results are gathered.
+
 The JAX trainer adds a second ``--resume`` to the shared parser, which
 argparse refuses before any argument is read; the port uses the shared
-parser's ``--resume``. Multi-process data parallelism is not ported yet:
-``WORLD_SIZE`` above 1 (or the JAX package's launch variables) raises
-``NotImplementedError`` naming ROADMAP queue 1 item 6 before any work.
+parser's ``--resume``.
 """
 
 from __future__ import annotations
@@ -34,13 +39,14 @@ import torch
 
 from cald_tpu_torch.cli.config import build_config_from_args
 from cald_tpu_torch.cli.driver import (
-    _fresh_state, _loaders, _task_epoch, build_datasets, check_single_process,
+    _fresh_state, _loaders, _Lockstep, _task_epoch, build_datasets, run_device,
 )
 from cald_tpu_torch.data.batching import create_aspect_ratio_groups, default_canvases
 from cald_tpu_torch.data.pool import ALPoolState
 from cald_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
 from cald_tpu_torch.engine.evaluate import evaluate
 from cald_tpu_torch.engine.train import make_train_step
+from cald_tpu_torch.parallel import process_count, process_index, process_shard
 
 
 def train(cfg, *, datasets=None) -> dict:
@@ -48,10 +54,9 @@ def train(cfg, *, datasets=None) -> dict:
     epoch when given) on the whole training split, then evaluate. Returns
     ``{"model", "start_epoch", "losses": {epoch: last step's loss}, "eval"}``."""
     cfg = cfg.resolve()
-    check_single_process()
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
+    device = run_device(cfg)
+    if process_count() > 1:
+        print(f"multi-process data parallel: {process_count()} processes")
     train_ds, test_ds = datasets if datasets is not None else build_datasets(cfg)
     num_classes = len(train_ds.class_names)
     canvases = default_canvases(cfg.min_size, cfg.max_size)
@@ -72,17 +77,18 @@ def train(cfg, *, datasets=None) -> dict:
     step_fn = make_train_step(model, optimizer, scheduler)
     losses = {}
     for epoch in range(start_epoch, cfg.epochs):
-        loader = _loaders(cfg, train_ds, pool.labeled, batch_size=cfg.batch_size, train=True,
-                          canvases=canvases, group_ids=group_ids, seed=cfg.seed + epoch)
+        loader = _Lockstep(_loaders(cfg, train_ds, pool.labeled, batch_size=cfg.batch_size,
+                                    train=True, canvases=canvases, group_ids=group_ids,
+                                    seed=cfg.seed + epoch))
         metrics = _task_epoch(cfg, step_fn, loader, cycle=0, epoch=epoch, device=device)
         losses[epoch] = float(metrics["loss"]) if metrics else float("nan")
         print(f"epoch {epoch}: loss {losses[epoch]:.4f}")
-        if cfg.output_dir:
+        if cfg.output_dir and process_index() == 0:
             save_checkpoint(os.path.join(cfg.output_dir, "last"), model, optimizer, scheduler,
                             rng={"seed": cfg.seed}, meta={"epoch": epoch})
     stats = {}
     if cfg.eval_every_cycle:
-        test_loader = _loaders(cfg, test_ds, range(len(test_ds)),
+        test_loader = _loaders(cfg, test_ds, process_shard(range(len(test_ds)), pad=False),
                                batch_size=cfg.score_batch_size, train=False,
                                canvases=canvases, group_ids=test_group_ids)
         stats = evaluate(model, test_loader, test_ds, kind=cfg.eval_kind, device=device,

@@ -12,6 +12,7 @@ import torch
 
 from cald_tpu_torch.engine.coco_eval import coco_evaluate_detections
 from cald_tpu_torch.engine.voc_eval import voc_evaluate_detections
+from cald_tpu_torch.parallel import all_gather_objects, process_count
 
 
 def run_inference(model, loader, *, device, score_thresh: float = 0.0) -> list[dict]:
@@ -41,10 +42,18 @@ def run_inference(model, loader, *, device, score_thresh: float = 0.0) -> list[d
 def evaluate(model, loader, dataset, *, kind: str, device, classwise: bool = False,
              print_fn=print) -> dict:
     """kind: 'voc' or 'coco' (``classwise`` adds COCO's per-class AP table).
-    Returns the evaluator's metric dict."""
+    Returns the evaluator's metric dict.
+
+    Under more than one process each rank detects its own loader's images
+    and the per-image results of all ranks are gathered before the
+    evaluator runs on every rank (the reference's ``utils.all_gather`` of
+    pickled predictions)."""
     if kind not in ("voc", "coco"):
         raise ValueError(f"unknown eval kind {kind!r}")
     results = run_inference(model, loader, device=device)
+    if process_count() > 1:
+        results = list({r["dataset_index"]: r for part in all_gather_objects(results)
+                        for r in part}.values())
     for r in results:
         r["image_id"] = dataset.record(r["dataset_index"]).image_id
     if kind == "voc":

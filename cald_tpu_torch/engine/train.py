@@ -6,6 +6,10 @@ scheduler, updated in place. A step returns its metrics as device tensors and
 adds no host sync of its own; the epoch loop reads them every ``print_freq``
 steps and raises ``FloatingPointError`` on a non-finite loss (the reference
 exits the process).
+
+Under multi-process data parallelism (``cald_tpu_torch.parallel``) a step
+averages its gradients and its metrics over the ranks: every loss is a mean
+of per-image losses, so the result is the step of the global batch.
 """
 
 from __future__ import annotations
@@ -17,14 +21,16 @@ import torch
 
 from cald_tpu_torch.engine.logging import MetricLogger
 from cald_tpu_torch.models.matcher import Draw
+from cald_tpu_torch.parallel import process_mean, reduce_gradients_
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer, scheduler=None, *,
                     loss_weights: dict | None = None) -> Callable:
     """Returns step(images, valid_hw, gt_boxes, gt_labels, gt_valid, draw) ->
     metrics: the four losses and their (weighted) sum ``loss``, detached
-    device scalars. One step is FasterRCNN.loss, backward, an optimizer step
-    and a scheduler step."""
+    device scalars, averaged over the ranks. One step is FasterRCNN.loss,
+    backward, the ranks' gradient average, an optimizer step and a scheduler
+    step."""
 
     def step(images, valid_hw, gt_boxes, gt_labels, gt_valid, draw: Draw) -> dict:
         losses, _ = model.loss(images, valid_hw, gt_boxes, gt_labels, gt_valid, draw)
@@ -34,12 +40,13 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, scheduler=None, *,
             total = sum(losses.values())
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        reduce_gradients_(optimizer)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
-        return metrics
+        metrics = {**losses, "loss": total}
+        return dict(zip(metrics, process_mean(torch.stack(
+            [v.detach() for v in metrics.values()])).unbind()))
 
     return step
 

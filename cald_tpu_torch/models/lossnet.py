@@ -16,13 +16,17 @@ from cald_tpu_torch.models.layers import Dense
 
 
 class LossNet(nn.Module):
-    """``in_channels`` is each level's channel count (the FPN's 256)."""
+    """``in_channels`` is the levels' channel count (the FPN's 256), or one
+    count per level (the CIFAR ResNet's 64/128/256/512), as Flax's Dense
+    layers take the widths they are given."""
 
-    def __init__(self, num_levels: int = 4, interm_dim: int = 128, in_channels: int = 256):
+    def __init__(self, num_levels: int = 4, interm_dim: int = 128,
+                 in_channels: int | Sequence[int] = 256):
         super().__init__()
         self.num_levels = num_levels
+        widths = [in_channels] * num_levels if isinstance(in_channels, int) else in_channels
         for i in range(num_levels):
-            self.add_module(f"fc{i}", Dense(in_channels, interm_dim))
+            self.add_module(f"fc{i}", Dense(widths[i], interm_dim))
         self.linear = Dense(num_levels * interm_dim, 1)
 
     def forward(self, pyramid: Sequence[torch.Tensor]) -> torch.Tensor:

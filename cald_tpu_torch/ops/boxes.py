@@ -20,14 +20,29 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
-def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU matrix (torchvision semantics): (..., N, 4) x (..., M, 4)
-    -> (..., N, M)."""
+def intersect(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """All-pairs intersection areas, clamped at zero: (..., N, 4) x
+    (..., M, 4) -> (..., N, M)."""
     w = (torch.minimum(boxes1[..., :, None, 2], boxes2[..., None, :, 2])
          - torch.maximum(boxes1[..., :, None, 0], boxes2[..., None, :, 0])).clamp_min(0.0)
     h = (torch.minimum(boxes1[..., :, None, 3], boxes2[..., None, :, 3])
          - torch.maximum(boxes1[..., :, None, 1], boxes2[..., None, :, 1])).clamp_min(0.0)
-    inter = w * h
+    return w * h
+
+
+def iou_one_vs_many(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """IoU of one box (..., 4) against (..., M, 4) -> (..., M), torchvision
+    (clamped) semantics."""
+    inter = intersect(box[..., None, :], boxes)[..., 0, :]
+    union = area(box)[..., None] + area(boxes) - inter
+    return torch.where(union > 0, inter / union.clamp_min(1e-12),
+                       torch.zeros((), dtype=inter.dtype, device=inter.device))
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU matrix (torchvision semantics): (..., N, 4) x (..., M, 4)
+    -> (..., N, M)."""
+    inter = intersect(boxes1, boxes2)
     union = area(boxes1)[..., :, None] + area(boxes2)[..., None, :] - inter
     return torch.where(union > 0, inter / union.clamp_min(1e-12),
                        torch.zeros((), dtype=inter.dtype, device=inter.device))
@@ -58,6 +73,22 @@ def clip_boxes(boxes: torch.Tensor, image_hw) -> torch.Tensor:
 
     return torch.stack([clip(boxes[..., 0], w), clip(boxes[..., 1], h),
                         clip(boxes[..., 2], w), clip(boxes[..., 3], h)], dim=-1)
+
+
+def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
+    """Mask of the boxes with both sides >= ``min_size`` (torchvision
+    ``remove_small_boxes``)."""
+    return ((boxes[..., 2] - boxes[..., 0] >= min_size)
+            & (boxes[..., 3] - boxes[..., 1] >= min_size))
+
+
+def resize_boxes(boxes: torch.Tensor, from_hw, to_hw) -> torch.Tensor:
+    """Rescale boxes from an image of size ``from_hw`` (h, w) to one of
+    ``to_hw`` (the reference's frcnn_la.py:307-315)."""
+    (fh, fw), (th, tw) = from_hw, to_hw
+    ry, rx = th / fh, tw / fw
+    return boxes * torch.stack([torch.as_tensor(v, dtype=boxes.dtype, device=boxes.device)
+                                for v in (rx, ry, rx, ry)], dim=-1)
 
 
 def _xyxy_to_cxcywh(boxes: torch.Tensor):

@@ -168,6 +168,19 @@ def multi_scale_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
     return out.reshape(b, n, output_size, output_size, c).to(out_dtype or feats[0].dtype)
 
 
+def roi_align(feat: torch.Tensor, rois: torch.Tensor, *, spatial_scale: float,
+              output_size: int = 7, sampling_ratio: int = 2,
+              chunk_size: int = 256) -> torch.Tensor:
+    """Single-level RoIAlign, plain: feat (H, W, C), rois (N, 4) in image
+    coordinates -> (N, output_size, output_size, C) in the feature dtype
+    (the JAX package's ``roi_align``; torchvision ``roi_align`` with
+    ``aligned=False``). ``multi_scale_roi_align`` on a one-level pyramid."""
+    return multi_scale_roi_align(
+        [feat[None]], rois[None], spatial_scales=[spatial_scale],
+        levels=torch.zeros(rois.shape[:1], dtype=torch.int32, device=rois.device)[None],
+        output_size=output_size, sampling_ratio=sampling_ratio, chunk_size=chunk_size)[0]
+
+
 def _pooled_taps(start, extent, n_valid, out_size: int, sr: int, bf16: bool):
     """The pooled axis weights of K4 for every roi: for each output bin its
     ``2 * sr`` (pixel, weight) taps, (R, out_size, 2 * sr) each. Each sample

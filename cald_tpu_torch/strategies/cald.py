@@ -5,17 +5,28 @@ batch on the device -> one batched detect over the B x A augmented images ->
 consistency and per-class correlation. Selection (stage 1: ascending
 consistency, keep ``mutual_range * budget``; stage 2: class-balance JS rank)
 is NumPy on the host.
+
+``shrink_slice`` (``--score-shrink-slice``, opt-in) detects the shrink-resize
+augs on a smaller canvas: their content lives in the canvas's top-left
+corner, so the slice ``ceil64(ratio * canvas)`` drops only zero padding. Augs
+that share a slice share one detect; with 'FCDR' on a 640x1024 canvas the
+resize detects on 512x832 and the other three on the full canvas, so a score
+call makes three detects. Exact when the norms' biases are zero; with
+trained biases the coarse levels' padding halo differs by canvas and shifts
+scores slightly (the JAX package's EXPERIMENTS.md deviation study).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
 from cald_tpu_torch.augment.suite import Draw, build_aug_batch, generator_draw
+from cald_tpu_torch.models.detections import Detections
 from cald_tpu_torch.ops.consistency import cald_consistency, class_correlation
 
 
@@ -28,6 +39,7 @@ class CALDConfig:
     no_mutual: bool = False
     k_ref: int = 50                   # subsample target
     subsample_threshold: int = 40     # subsample trigger
+    shrink_slice: bool = False        # detect shrink-resize augs on a canvas slice
 
 
 def subsample_reference(boxes, scores, labels, scores_cls, prob_max, valid, *,
@@ -60,12 +72,62 @@ def subsample_reference(boxes, scores, labels, scores_cls, prob_max, valid, *,
             new_valid & g(valid))
 
 
+def _shrink_ratio(name: str) -> float | None:
+    """Down-scale ratio of a resize-family augmentation, else None."""
+    base, _, arg = name.partition(":")
+    if base == "smaller_resize":
+        return float(arg) if arg else 0.8
+    if base == "resize" and arg and float(arg) < 1.0:
+        return float(arg)
+    return None
+
+
+def _ceil_mult(x: float, m: int = 64) -> int:
+    return int(math.ceil(x / m)) * m
+
+
+def aug_groups(aug_names: Sequence[str], canvas_hw: tuple, shrink_slice: bool) -> dict:
+    """{slice (h, w) or None for the full canvas: positions of the augs
+    detected on it}, in first-seen order."""
+    h, w = canvas_hw
+    groups: dict = {}
+    for i, name in enumerate(aug_names):
+        r = _shrink_ratio(name) if shrink_slice else None
+        key = None
+        if r is not None:
+            ch, cw = _ceil_mult(h * r), _ceil_mult(w * r)
+            if ch < h or cw < w:
+                key = (ch, cw)
+        groups.setdefault(key, []).append(i)
+    return groups
+
+
 def make_cald_score_fn(model, cfg: CALDConfig, num_classes: int) -> Callable:
     """Returns ``score_batch(images, valid_hw, draw) -> (consistency (B,),
     cls_corrs (B, num_classes - 1))``. ``draw(i, shape)`` supplies the
     uniforms of augmentation i (``generator_draw`` for a ``torch.Generator``).
     """
     aug_names = tuple(cfg.aug_names)
+
+    def _detect_augs(aug_images, aug_hw):
+        """(B, A, H, W, 3) -> Detections (B, A, K, ...): one detect per
+        canvas slice."""
+        b, a, h, w = aug_images.shape[:4]
+        parts = {}
+        for key, idxs in aug_groups(aug_names, (h, w), cfg.shrink_slice).items():
+            ims = aug_images if len(idxs) == a else aug_images[:, idxs]
+            if key is not None:
+                ims = ims[:, :, : key[0], : key[1]]
+            d = model.detect(ims.reshape((b * len(idxs),) + ims.shape[2:]),
+                             aug_hw[:, idxs].reshape(-1, 2))
+            d = d.map(lambda t, n=len(idxs): t.reshape((b, n) + t.shape[1:]))
+            if len(idxs) == a:
+                return d
+            for j, i in enumerate(idxs):
+                parts[i] = d.map(lambda t, j=j: t[:, j])
+        return Detections(**{f.name: torch.stack([getattr(parts[i], f.name) for i in range(a)],
+                                                 dim=1)
+                             for f in dataclasses.fields(Detections)})
 
     @torch.inference_mode()
     def score_batch(images: torch.Tensor, valid_hw: torch.Tensor, draw: Draw):
@@ -81,10 +143,7 @@ def make_cald_score_fn(model, cfg: CALDConfig, num_classes: int) -> Callable:
         aug_in = images if model.dtype is None else images.to(model.dtype)
         aug_images, aug_boxes, aug_hw = build_aug_batch(
             aug_in, ref_boxes, ref_valid, valid_hw, aug_names, draw)
-        a = len(aug_names)
-        dets = model.detect(aug_images.reshape((b * a,) + aug_images.shape[2:]),
-                            aug_hw.reshape(b * a, 2))
-        dets = dets.map(lambda t: t.reshape((b, a) + t.shape[1:]))
+        dets = _detect_augs(aug_images, aug_hw)
 
         consistency = cald_consistency(
             aug_boxes, ref_scores_cls, ref_prob_max, ref_valid, dets.boxes,

@@ -7,6 +7,13 @@ ranking head over the FPN features; after ``task_epochs`` the features
 feeding LossNet are detached (ll_train.py:90-95). Scoring = LossNet
 prediction on the pool; selection = top-budget, descending
 (ll_train.py:278-284).
+
+Under multi-process data parallelism the ranking loss pairs image i with
+image flip(i) of the global batch, as the JAX package's jitted step does on
+its global arrays: rank 0's image i pairs with the last rank's image B-1-i.
+The ranks' predicted losses are gathered differentiably (``gather_cat``),
+every rank computes the same ranking loss, and each rank's LossNet gradient
+flows back through its own slice.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 
 from cald_tpu_torch.models.lossnet import loss_pred_loss
 from cald_tpu_torch.models.matcher import Draw
+from cald_tpu_torch.parallel import gather_cat, process_mean, reduce_gradients_
 
 
 def make_ll_train_step(model, lossnet, optimizer: torch.optim.Optimizer,
@@ -27,7 +35,8 @@ def make_ll_train_step(model, lossnet, optimizer: torch.optim.Optimizer,
     detach_features) -> metrics (``task_loss``, ``ll_loss``, ``loss``:
     detached device scalars). One backward of ``mean(per_image) + ll_weight
     * ll`` updates the detector and LossNet, each with its own optimizer and
-    scheduler."""
+    scheduler; under data parallelism ``ll`` is the global batch's and the
+    gradients and metrics are averaged over the ranks."""
 
     def step(images, valid_hw, gt_boxes, gt_labels, gt_valid, draw: Draw, *,
              detach_features: bool) -> dict:
@@ -37,18 +46,20 @@ def make_ll_train_step(model, lossnet, optimizer: torch.optim.Optimizer,
         feats = pyramid[: lossnet.num_levels]
         if detach_features:
             feats = [f.detach() for f in feats]
-        ll = loss_pred_loss(lossnet(feats), per_image)
+        ll = loss_pred_loss(gather_cat(lossnet(feats)), gather_cat(per_image.detach()))
         task_loss = per_image.mean()
         total = task_loss + ll_weight * ll
         optimizer.zero_grad(set_to_none=True)
         ll_optimizer.zero_grad(set_to_none=True)
         total.backward()
+        reduce_gradients_(optimizer, ll_optimizer)
         optimizer.step()
         ll_optimizer.step()
         for s in (scheduler, ll_scheduler):
             if s is not None:
                 s.step()
-        return {"task_loss": task_loss.detach(), "ll_loss": ll.detach(), "loss": total.detach()}
+        metrics = process_mean(torch.stack([task_loss.detach(), ll.detach(), total.detach()]))
+        return dict(zip(("task_loss", "ll_loss", "loss"), metrics.unbind()))
 
     return step
 

@@ -11,6 +11,12 @@ Training losses per step (vaal_train.py:99-148):
         + adv_weight * BCE(D(mu_l), 1) + adv_weight * BCE(D(mu_u), 1)
         (the generator wants BOTH pools to look labeled)
   D:    BCE(D(mu_l), 1) + BCE(D(mu_u), 0)
+
+Under multi-process data parallelism both steps are those of the global
+batch, as the JAX package's ``place`` makes them: the KLD is a raw sum over
+the global batch (each rank's sum weighted by the rank count before the
+gradient average), the MSE and BCE terms are means over it (the ranks'
+means averaged).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from cald_tpu_torch.augment.suite import Draw
 from cald_tpu_torch.models.init import lecun_init_
 from cald_tpu_torch.models.vae import VAAL_VAE, VAALDiscriminator, vae_loss
 from cald_tpu_torch.ops.losses import bce_with_logits
+from cald_tpu_torch.parallel import process_count, process_mean, reduce_gradients_
 
 VAAL_IMAGE_SIZE = 256
 
@@ -75,7 +82,8 @@ class VAALTrainer:
         updated VAE gives (vaal_train.py:125-128). ``draw(i, (B, z_dim),
         kind="normal")`` supplies the reparameterisation normals of the
         labeled (i = 0) and unlabeled (i = 1) batch; both passes use them.
-        Returns the two losses as detached device scalars."""
+        Returns the two losses as detached device scalars (the global
+        batch's under data parallelism)."""
         lab = resize_for_vaal(labeled_images, self.image_size)
         unlab = resize_for_vaal(unlabeled_images, self.image_size)
         eps_l = draw(0, (lab.shape[0], self.z_dim), kind="normal").to(lab.device)
@@ -83,10 +91,13 @@ class VAALTrainer:
 
         rl, _, mu_l, lv_l = self.vae(lab, eps_l)
         ru, _, mu_u, lv_u = self.vae(unlab, eps_u)
-        vloss = (vae_loss(rl, lab, mu_l, lv_l) + vae_loss(ru, unlab, mu_u, lv_u)
+        # ``beta = ranks``: the averaged gradient is that of the global KLD sum
+        n = process_count()
+        vloss = (vae_loss(rl, lab, mu_l, lv_l, n) + vae_loss(ru, unlab, mu_u, lv_u, n)
                  + _bce_mean(self.disc(mu_l), 1.0) + _bce_mean(self.disc(mu_u), 1.0))
         self.vae_opt.zero_grad(set_to_none=True)
         vloss.backward()
+        reduce_gradients_(self.vae_opt)
         self.vae_opt.step()
         if self.vae_sched is not None:
             self.vae_sched.step()
@@ -97,10 +108,11 @@ class VAALTrainer:
         dloss = _bce_mean(self.disc(mu_l2), 1.0) + _bce_mean(self.disc(mu_u2), 0.0)
         self.d_opt.zero_grad(set_to_none=True)
         dloss.backward()
+        reduce_gradients_(self.d_opt)
         self.d_opt.step()
         if self.d_sched is not None:
             self.d_sched.step()
-        return vloss.detach(), dloss.detach()
+        return tuple(process_mean(torch.stack([vloss.detach(), dloss.detach()])).unbind())
 
     @torch.inference_mode()
     def unlabeled_scores(self, images: torch.Tensor) -> np.ndarray:

@@ -146,6 +146,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
      on the same tree: one epoch with ``--output-dir``, then ``--resume``
      for a second. The native JPEG decoder is not built here: the card has
      no libjpeg headers or library.
+ 16. data parallelism, the shrink slice, CIFAR: (a) ``al_loop`` on two
+     ranks, subprocesses of ``tests/torch_dp_worker.py`` sharing the card
+     over gloo (NCCL refuses two ranks on one device), at phase 11's data
+     and cut (batch 4 a rank, CALD 'FCDR', CALD_TPU_ROI_GROUP unset) from
+     phase 11's backbone, then one ``--resume`` (``dp_al_phase``'s
+     docstring lists the checks); (b) one f32 step of two ranks at B=2
+     against this process over the same two halves (and, not gated, at
+     B=4 in one pass) on the same batch and draws (``dp_step_phase``); (c) after phase 5, on phase 4's model and pool,
+     CALD with ``shrink_slice``: 3 K1 a score call, K1 on the 512x832
+     slice against its plain version at phase 3's limits with its time and
+     bound, consistency and selection against the full canvas on the same
+     draws, warm calls against phase 5's (``shrink_slice_phase``); (d)
+     ``al_cifar_loop`` at full width (ResNet-18 width 64, batch 128,
+     LossNet 128, f32) on ``synthetic_cifar``, cut to 5000/1000 images, 2
+     cycles of 6 epochs: finite losses, the labeled set grown by 1000 a
+     cycle, test accuracy above 50%, warm joint steps (``cifar_phase``).
+     Times of two ranks sharing one card are not scaling numbers.
+     ``python3 chip_smoke.py --nccl`` (not part of the smoke run) runs
+     phase 16's helpers, (b) and (a) on two ranks over NCCL, a card a rank
+     (one card: NCCL's refusal).
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
 K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
@@ -153,7 +173,10 @@ CALD 'FCDRGS' score call and K2/K3's per group-norm step from phase 12;
 K1's per ``faster_mobilenet`` detect and K2/K3's per step,
 ``launches_mobilenet``, from phase 14; K1's per COCO detect and K2/K3's
 per COCO step, ``launches_coco``, and their times on COCO's canvases,
-``coco``, from phase 15),
+``coco``, from phase 15; K1's time and bound on the shrink slice's
+512x832 canvas and launches per such score call, ``shrink_slice``, and
+K1/K2/K3's launches on rank 0 of the two-rank loop, ``launches_dp``, from
+phase 16),
 its time (K5 and K6: on weights restaged once; ``ms_with_restaging``
 through the wrappers) and its plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type,
@@ -2809,12 +2832,368 @@ def coco_train_cli_phase(device, kernels: dict, card: str, workdir: str, root: s
             "steps": [len(c.steps) for _, _, c in runs], "wall_s": wall}
 
 
+# --------------------------------------------------------------------------
+# phase 16: multi-process data parallelism, the shrink slice, CIFAR
+# --------------------------------------------------------------------------
+
+DP_WORLD = 2                     # ranks, both on the one card, over gloo
+SLICE_CANVAS = (512, 832)        # ceil64(0.8 x 640x1024): the resize's detect canvas
+SLICE_VALID_HW = (480, 800)      # 0.8 x VALID_HW
+DP_LR = 0.01
+# the CIFAR demo at full width (ResNet-18 width 64, batch 128, LossNet 128),
+# cut from 50000/10000 images, subset 10000, addendum 1000, 3 trials x 10
+# cycles x 200 epochs (milestone 160, detach after 120)
+CIFAR_CUT = dict(num_train=5000, batch=128, subset=2000, addendum=1000, trials=1, cycles=2,
+                 epochs=6, milestones=(5,), epoch_loss=4, width=64, interm_dim=128, seed=SEED)
+CIFAR_TEST = 1000
+
+
+def dp_worker():
+    """``tests/torch_dp_worker.py``, the rank script of phase 16: each rank
+    is a subprocess of it (it imports torch and the port only)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_dp_worker
+
+    return torch_dp_worker
+
+
+def dp_al_phase(device, card: str, workdir: str, backbone: str, backend: str = "gloo") -> dict:
+    """Phase 16(a): ``al_loop`` on two ranks sharing the card over gloo, at
+    phase 11's data and cut (batch 4 a rank, CALD 'FCDR', CALD_TPU_ROI_GROUP
+    unset) from phase 11's backbone, then one ``--resume`` from cycle 0's
+    checkpoint. Checks: both ranks' histories alike (labeled digests and
+    mAP), labeled 16 -> 24 (or 25, phase 11's rule), every epoch at the
+    agreed step count, one K2 and one K3 a step and one K1 a detect on each
+    rank, the checkpoints written by rank 0 alone, the resumed run's
+    selections those of the uninterrupted run."""
+    worker = dp_worker()
+    train_root, _ = _al_data(workdir)
+    out = os.path.join(workdir, "out")
+    cfg = dict(data_path=train_root, strategy="cald", augs="FCDR", cycles=2, epochs=1,
+               batch_size=TRAIN_BATCH, init_num=16, budget_num=8, score_batch_size=BATCH,
+               workers=4, print_freq=1, output_dir=out, pretrained_backbone=backbone,
+               device=device.type)
+    payload = {"task": "al_loop", "cfg": cfg, "count_kernels": True,
+               "datasets": {"train": (train_root, "trainval"),
+                            "test": (os.path.join(workdir, "test"), "test")}}
+    runs = {}
+    t0 = time.perf_counter()
+    for label, extra in (("run", {}), ("resume", {"resume": os.path.join(out, "cycle_0"),
+                                                   "output_dir": ""})):
+        t = time.perf_counter()
+        ranks = worker.launch({**payload, "cfg": {**cfg, **extra}},
+                              os.path.join(workdir, label), world=DP_WORLD, backend=backend,
+                              timeout=600)
+        runs[label] = ranks
+        for r, res in enumerate(ranks):
+            for h in res["history"]:
+                if "split_s" in h:
+                    print(f"dp al loop ({backend}) {label} rank {r}: cycle {h['cycle']}: labeled "
+                          f"{h['labeled']}, mAP {h['eval'].get('mAP')}; wall {h['time_s']:.2f} s (train "
+                          f"{h['split_s']['train']:.2f}, eval {h['split_s']['eval']:.2f}, "
+                          f"score {h['split_s']['score']:.2f}) on {card}, {DP_WORLD} ranks "
+                          + ("sharing the card (not a scaling number)" if backend == "gloo"
+                             else "on their own cards"))
+            print(f"dp al loop {label} rank {r}: agreed steps a epoch {res['steps']}, run "
+                  f"{res['steps_run']}; {len(res['detects'])} detects; launches "
+                  f"{res['launches']}; checkpoint writes {res['saves']}")
+        print(f"dp al loop {label}: {time.perf_counter() - t:.2f} s for both ranks' processes")
+        keys = [[(h.get("labeled_digest"), h.get("eval", {}).get("mAP")) for h in res["history"]]
+                for res in ranks]
+        if any(k != keys[0] for k in keys):
+            raise AssertionError(f"dp al loop {label}: the ranks' histories differ: {keys}")
+        for res in ranks:
+            steps, k = sum(res["steps_run"]), res["launches"]
+            if not (res["steps_run"] == res["steps"] == ranks[0]["steps"]):
+                raise AssertionError(f"dp al loop {label}: epochs not at the agreed step count")
+            if not (k["roi_align_train_fwd"] == steps and k["roi_align_bwd"] == steps
+                    and k["roi_align"] == len(res["detects"]) > 0
+                    and k["roi_align_group_fwd"] == 0):
+                raise AssertionError(f"dp al loop {label}: not one K2/K3 a step and one K1 a "
+                                     f"detect: {k}, {steps} steps, {len(res['detects'])} detects")
+        if label == "run":
+            hist = ranks[0]["history"]
+            picked = hist[0]["labeled"] - cfg["init_num"]
+            if not (cfg["budget_num"] <= picked <= int(1.2 * cfg["budget_num"])
+                    and hist[1]["labeled"] == hist[0]["labeled"]):
+                raise AssertionError(f"dp al loop: the labeled set did not grow by the budget")
+            if not all(math.isfinite(h["eval"]["mAP"]) for h in hist):
+                raise AssertionError("dp al loop: non-finite VOC mAP")
+            if not (ranks[0]["saves"] == 2 and all(r["saves"] == 0 for r in ranks[1:])
+                    and os.path.isfile(os.path.join(out, "cycle_0", "model.pt"))):
+                raise AssertionError("dp al loop: the checkpoints were not written by rank 0 alone")
+    digests = [[h.get("labeled_digest") for h in runs[k][0]["history"]] for k in runs]
+    print(f"dp al loop: labeled digests {digests[0]} uninterrupted, {digests[1]} resumed")
+    if digests[0] != digests[1]:
+        raise AssertionError("dp al loop: the resumed run selected otherwise")
+    steps = sum(runs["run"][0]["steps_run"])
+    return {"history": runs["run"][0]["history"], "steps": steps,
+            "launches": runs["run"][0]["launches"], "wall_s": time.perf_counter() - t0}
+
+
+def dp_step_phase(device, card: str, workdir: str, backend: str = "gloo") -> dict:
+    """Phase 16(b): one training step of phase 7's R50-FPN in f32 (TF32 off,
+    conv1 and layer1 frozen, SGD lr 0.01) on the global batch of 4 images,
+    three ways from the same weights and draws: two ranks at B=2 (the rows
+    of the draws each), this process over the same two halves with their
+    gradients accumulated (the ranks' arithmetic without the collectives),
+    and this process at B=4 in one pass. Checks: the ranks bit-equal; the
+    ranks against the halves: the losses within 1e-5 relative and every
+    parameter's change within 1e-3 of the step's largest change (K3's
+    atomics add in a different order from run to run). The one pass at B=4
+    is printed beside them, not gated: cuDNN picks other algorithms for
+    B=4 than for B=2, and the detector's sampled rois follow rounding where
+    proposal scores nearly tie (on the CPU one process on 1 and on 4
+    threads differs by 7e-4 of the largest change)."""
+    import torch
+
+    from cald_tpu_torch.engine.optim import RESNET_FROZEN_L3, make_sgd
+    from cald_tpu_torch.engine.train import make_train_step
+    from cald_tpu_torch.models.faster_rcnn import FasterRCNN
+    from cald_tpu_torch.models.matcher import generator_gumbel
+
+    worker = dp_worker()
+    model = build_model(device, compute_dtype="float32", amplify_heads=False).train()
+    spec = {"kind": "faster", "cfg": model.cfg, "device": device.type,
+            "state_dict": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
+    bt = make_train_batches(1)[0]
+    batch = (bt.images, bt.valid_hw, bt.boxes, bt.labels, bt.box_valid)
+    tensors = [torch.from_numpy(a).to(device) for a in batch]
+    draw = generator_gumbel(torch.Generator(device=device).manual_seed(SEED + 16))
+    draws = {}
+
+    def recording(stream, shape):
+        out = draw(stream, shape)
+        draws[stream] = out.cpu().numpy()
+        return out
+
+    def params(m):
+        return {n: p.detach().cpu() for n, p in m.named_parameters()}
+
+    step = make_train_step(model, make_sgd(model, DP_LR, frozen_prefixes=RESNET_FROZEN_L3))
+    one_pass = {k: float(v) for k, v in step(*tensors, recording).items()}
+    one_pass_params = params(model)
+
+    halves = FasterRCNN(model.cfg)
+    halves.load_state_dict(spec["state_dict"])
+    halves.to(device).train()
+    opt = make_sgd(halves, DP_LR, frozen_prefixes=RESNET_FROZEN_L3)
+    opt.zero_grad(set_to_none=True)
+    metrics: dict = {}
+    b = TRAIN_BATCH // DP_WORLD
+    for h in range(DP_WORLD):
+        rows = slice(h * b, (h + 1) * b)
+        losses, _ = halves.loss(*(t[rows] for t in tensors),
+                                lambda i, shape: torch.from_numpy(draws[i][rows]).to(device))
+        total = sum(losses.values())
+        (total / DP_WORLD).backward()
+        for k, v in {**losses, "loss": total}.items():
+            metrics[k] = metrics.get(k, 0.0) + v.item() / DP_WORLD
+    opt.step()
+    want = params(halves)
+    del model, halves
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ranks = worker.launch({"task": "step", "model": spec, "batch": batch, "draws": draws,
+                           "lr": DP_LR, "frozen": RESNET_FROZEN_L3},
+                          os.path.join(workdir, "step"), world=DP_WORLD, backend=backend,
+                          timeout=600)
+    before = spec["state_dict"]
+
+    def errors(got_metrics, got):
+        loss = max(abs(got_metrics[k] - v) / abs(v) for k, v in metrics.items())
+        scale = max(float((w - before[n]).abs().max()) for n, w in want.items())
+        change = max(float((got[n] - w).abs().max()) for n, w in want.items()) / scale
+        return loss, change
+
+    loss_err, change_err = max(errors(r["metrics"], r["params"]) for r in ranks)
+    pass_loss, pass_change = errors(one_pass, one_pass_params)
+    same = all(torch.equal(r["params"][n], ranks[0]["params"][n]) for r in ranks[1:]
+               for n in want)
+    print(f"dp step ({backend}): R50-FPN f32, {DP_WORLD} ranks x B={b} against this process over the "
+          f"same halves: losses {metrics}, max relative loss error {loss_err:.3e} (limit "
+          f"1e-5), changes max error {change_err:.3e} of the largest change (limit 1e-3); "
+          f"ranks bit-equal {same}; one pass at B={TRAIN_BATCH} against the halves: loss "
+          f"{pass_loss:.3e}, changes {pass_change:.3e} (not gated); "
+          f"{time.perf_counter() - t:.2f} s for the ranks' processes on {card}")
+    if not (loss_err <= 1e-5 and change_err <= 1e-3 and same):
+        raise AssertionError("the two-rank step is not the step of the global batch")
+    return {"loss_err": loss_err, "change_err": change_err, "one_pass_loss_err": pass_loss,
+            "one_pass_change_err": pass_change}
+
+
+def shrink_slice_phase(model, device, pool, kernels: dict, full_ms: float, card: str) -> dict:
+    """Phase 16(c), on phase 4's model and pool: the CALD scorer with
+    ``shrink_slice``: three K1 launches a score call (base, the three
+    full-canvas augs, the resize on 512x832), K1 at the slice's shapes
+    against its plain version at phase 3's limits with its time and bound,
+    the consistency and selection against the full canvas on the same
+    draws, and warm score calls against phase 5's."""
+    import torch
+
+    from cald_tpu_torch.augment.suite import generator_draw
+    from cald_tpu_torch.strategies.cald import (
+        CALDConfig, cald_select, make_cald_score_fn, score_pool,
+    )
+
+    shapes = []
+    detect = model.detect
+
+    def counting_detect(images, valid_hw):
+        shapes.append(tuple(images.shape[:3]))
+        return detect(images, valid_hw)
+
+    out = {}
+    for shrink in (True, False):
+        cfg = CALDConfig(shrink_slice=shrink)
+        fn = make_cald_score_fn(model, cfg, NUM_CLASSES)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        model.detect = counting_detect
+        try:
+            shapes.clear()
+            for k in kernels.values():
+                k.launches = 0
+            cons, corrs = score_pool(fn, pool, list(range(BATCH * len(pool))), gen)
+            launches = {n: k.launches for n, k in kernels.items()}
+        finally:
+            del model.detect
+        labeled_mean = np.random.default_rng(SEED).uniform(0, 2, NUM_CLASSES - 1)
+        out[shrink] = {"fn": fn, "cons": cons, "launches": launches, "shapes": list(shapes),
+                       "selected": cald_select(cons, corrs, labeled_mean, BUDGET, cfg)}
+    s, f = out[True], out[False]
+    per_call = s["launches"]["roi_align"] / len(pool)
+    diff = np.abs(s["cons"] - f["cons"])
+    overlap = len(set(s["selected"].tolist()) & set(f["selected"].tolist())) / BUDGET
+    print(f"shrink slice: detect shapes {s['shapes'][:3]} a score call; launches {s['launches']} "
+          f"over {len(pool)} calls ({per_call:g} K1 a call); consistency against the full "
+          f"canvas on the same draws: mean |diff| {diff.mean():.4e}, max {diff.max():.4e}; "
+          f"selections {s['selected'].tolist()} vs {f['selected'].tolist()}, overlap "
+          f"{overlap:.3f}")
+    if not (per_call == 3 and s["shapes"][:3] == [(BATCH, *CANVAS), (3 * BATCH, *CANVAS),
+                                                    (BATCH, *SLICE_CANVAS)]):
+        raise AssertionError("the shrink slice did not detect three times a call on its canvases")
+    if not (np.isfinite(s["cons"]).all() and s["cons"].min() >= 0 and s["cons"].max() <= 1):
+        raise AssertionError("shrink slice: consistency not finite or outside [0, 1]")
+    entry = kernel_phase(device, canvas=SLICE_CANVAS, valid_hw=SLICE_VALID_HW,
+                         label="shrink slice kernel")
+    images = torch.from_numpy(pool[0].images).to(device)
+    valid_hw = torch.from_numpy(pool[0].valid_hw).to(device)
+    draw = generator_draw(torch.Generator(device=device).manual_seed(SEED + 3))
+    ms = _warm_ms(lambda: s["fn"](images, valid_hw, draw), 5)
+    print(f"shrink slice: 5 warm score calls of B={BATCH}: {ms:.1f} ms/call against the full "
+          f"canvas's {full_ms:.1f} (phase 5), {BATCH / ms * 1e3:.2f} images/s on {card}")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes", "max_abs_err",
+            "max_abs_err_f32")
+    return {"kernel": {**{k: entry[k] for k in keys}, "launches_per_score_call": per_call},
+            "mean_abs_diff": float(diff.mean()), "overlap": overlap, "score_ms": ms}
+
+
+def cifar_phase(device, card: str) -> dict:
+    """Phase 16(d): ``al_cifar_loop`` at full width (CIFAR_CUT) on
+    ``synthetic_cifar``, f32 (TF32 off): finite losses, the labeled set
+    grown by ``addendum`` each cycle, test accuracy above 50% after the last
+    cycle (tests/test_cifar.py's limit); then warm joint steps at batch 128
+    (ms, images/s)."""
+    import torch
+
+    from cald_tpu_torch.cifar import (
+        CifarALConfig, CifarLL4AL, al_cifar_loop, augment_draws, synthetic_cifar,
+    )
+
+    cfg = CifarALConfig(**CIFAR_CUT)
+    data = synthetic_cifar(num_train=cfg.num_train, num_test=CIFAR_TEST, seed=SEED)
+    losses = []
+    step = CifarLL4AL.train_step
+
+    def recording(self, *a, **k):
+        m = step(self, *a, **k)
+        losses.append(m["loss"])
+        return m
+
+    CifarLL4AL.train_step = recording
+    t0 = time.perf_counter()
+    try:
+        hist = al_cifar_loop(cfg, *data, print_fn=lambda line: print(f"cifar: {line}"),
+                             device=device)
+    finally:
+        CifarLL4AL.train_step = step
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(torch.stack(losses)).all())
+    print(f"cifar: {len(losses)} joint steps, losses finite {finite}, history {hist}; "
+          f"{wall:.2f} s on {card}")
+    if not finite:
+        raise AssertionError("cifar: non-finite losses")
+    if [h["labeled"] for h in hist] != [cfg.addendum * (c + 1) for c in range(cfg.cycles)]:
+        raise AssertionError("cifar: the labeled set did not grow by the addendum")
+    if not hist[-1]["acc"] > 50.0:
+        raise AssertionError(f"cifar: test accuracy {hist[-1]['acc']} not above 50%")
+
+    model = CifarLL4AL(cfg, cfg.addendum // cfg.batch, device)
+    images = torch.from_numpy(data[0][: cfg.batch]).to(device)
+    labels = torch.from_numpy(data[1][: cfg.batch]).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ms = _warm_ms(lambda: model.train_step(images, labels, *augment_draws(gen, cfg.batch),
+                                           detach=False), 20)
+    print(f"cifar: 20 warm joint steps at batch {cfg.batch}, width {cfg.width}: {ms:.2f} "
+          f"ms/step, {cfg.batch / ms * 1e3:.1f} images/s on {card}")
+    return {"history": hist, "step_ms": ms, "wall_s": wall}
+
+
+def nccl_check() -> int:
+    """``chip_smoke.py --nccl``, outside the smoke run: phase 16's helpers
+    on two ranks over NCCL, one card a rank (``rank % device_count``). With
+    one card NCCL refuses the second rank on the same device: prints the
+    ranks' message and exits 0. With two or more the helpers must give
+    their definitions' results, and phase 16(a)'s loop and (b)'s step run
+    over NCCL, a card a rank."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as workdir:
+        try:
+            out = dp_worker().launch({"task": "helpers", "n": 7}, workdir, world=DP_WORLD,
+                                     backend="nccl", timeout=300)
+        except RuntimeError as e:
+            print(f"nccl: {DP_WORLD} ranks on {n} card(s) failed:\n{e}")
+            return 0 if n < DP_WORLD else 1
+        print(f"nccl: {DP_WORLD} ranks on {n} cards: {out}")
+        idx = np.arange(7)
+        padded = np.concatenate([idx, idx[:1]])
+        for r, res in enumerate(out):
+            if not (np.array_equal(res["shard"], padded[r::DP_WORLD])
+                    and np.array_equal(res["merge"], np.arange(6.0) * 3)
+                    and res["sync_len"] == 3 and res["gather"] == [0.0, 0.0, 1.0, 1.0]
+                    and [o["rank"] for o in res["objects"]] == [0, 1]):
+                raise AssertionError(f"nccl: rank {r}'s helpers are wrong: {res}")
+        from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel
+
+        roi_align_kernel.load()
+        device = torch.device("cuda", 0)
+        dp_step_phase(device, card, workdir, backend="nccl")
+        from cald_tpu_torch.cli.config import ALConfig
+
+        train_root, datasets = _al_data(os.path.join(workdir, "p11"))
+        cfg = ALConfig(data_path=train_root, batch_size=TRAIN_BATCH, device="cuda",
+                       pretrained_backbone=os.path.join(workdir, "backbone.pt")).resolve()
+        write_calibrated_backbone(cfg, datasets[0], device)
+        dp_al_phase(device, card, os.path.join(workdir, "p16"), cfg.pretrained_backbone,
+                    backend="nccl")
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; there is no CPU path", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--nccl"]:
+        return nccl_check()
     from cald_tpu_torch.augment.suite import generator_draw
     from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
     from cald_tpu_torch.ops.roi_align_cuda import (
@@ -2868,6 +3247,8 @@ def main() -> int:
     dt = time.perf_counter() - t0
     print(f"time: {reps} warm score calls of B={BATCH}: {dt / reps * 1e3:.1f} ms/call, "
           f"{reps * BATCH / dt:.2f} images/s on {card}")
+    shrink = shrink_slice_phase(model, device, pool, all_kernels, dt / reps * 1e3, card)
+    kernel["shrink_slice"] = shrink["kernel"]
     del model, score_fn
     torch.cuda.empty_cache()
 
@@ -2918,6 +3299,17 @@ def main() -> int:
         coco_kernels = coco_kernel_phase(device, card)
         coco_train_cli_phase(device, all_kernels, card, p15, coco["root"], coco["backbone"])
         print(f"phase 15: {time.perf_counter() - t15:.2f} s on {card}")
+
+        t16 = time.perf_counter()
+        p16 = os.path.join(workdir, "p16")
+        dp = dp_al_phase(device, card, p16, al["backbone"])
+        dp_step_phase(device, card, p16)
+        cifar_phase(device, card)
+        print(f"phase 16: {time.perf_counter() - t16:.2f} s on {card}")
+    dl = dp["launches"]
+    kernel["launches_dp"] = {"launches_rank0": dl["roi_align"]}
+    for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
+        entry["launches_dp"] = {"launches_rank0": dl[name], "steps_rank0": dp["steps"]}
     ml = mobile["launches"]
     kernel["launches_mobilenet"] = {"launches": ml["roi_align"], "detects": ml["detects"],
                                     "per_detect": ml["roi_align"] / ml["detects"]}

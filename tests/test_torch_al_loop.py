@@ -301,25 +301,25 @@ def test_al_loop_random_matches_jax_picks(voc):
 
 
 def test_unported_options_raise(voc, monkeypatch):
-    """What the port does not run yet raises before any work, naming its
-    ROADMAP queue item: multi-process launches (6) and --score-shrink-slice
-    (8); an unknown model is a ValueError. COCO runs: its datasets are
-    built (and read from the tree, which a VOC root lacks)."""
+    """The port runs every option of the JAX package: --score-shrink-slice
+    passes the checks and COCO runs (its datasets are built, and read from
+    the tree, which a VOC root lacks). A multi-process launch joins its
+    process group before any work (here torchrun's WORLD_SIZE without its
+    MASTER_ADDR: the rendezvous fails first). An unknown model is a
+    ValueError."""
     with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
         driver.build_datasets(_cfg(voc["npy"], dataset="coco").resolve())
     driver._check_supported(_cfg(voc["npy"], dataset="coco").resolve())
+    driver._check_supported(_cfg(voc["npy"], score_shrink_slice=True).resolve())
     _no_work(monkeypatch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        driver.al_loop(_cfg(voc["npy"], score_shrink_slice=True))
-    with pytest.raises(AssertionError, match="al_loop started work"):
-        driver.al_loop(_cfg(voc["npy"], dataset="coco"))
-    for env in ({"WORLD_SIZE": "2"}, {"JAX_COORDINATOR_ADDRESS": "localhost:1234"},
-                {"CALD_TPU_DISTRIBUTED": "1"}):
-        with monkeypatch.context() as m:
-            for k, v in env.items():
-                m.setenv(k, v)
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-                driver.al_loop(_cfg(voc["npy"]))
+    for kw in ({"dataset": "coco"}, {"score_shrink_slice": True}):
+        with pytest.raises(AssertionError, match="al_loop started work"):
+            driver.al_loop(_cfg(voc["npy"], **kw))
+    with monkeypatch.context() as m:
+        m.setenv("WORLD_SIZE", "2")
+        m.delenv("MASTER_ADDR", raising=False)
+        with pytest.raises(ValueError, match="MASTER_ADDR"):
+            driver.al_loop(_cfg(voc["npy"]))
     with pytest.raises(ValueError, match="unknown model"):
         driver.al_loop(_cfg(voc["npy"], model="yolo"))
     with pytest.raises(ValueError, match="unknown model"):

@@ -96,7 +96,10 @@ def test_multi_process_launch_raises_before_any_work(monkeypatch):
 
     monkeypatch.setattr(train_cli, "build_datasets", no_work)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    # a multi-process launch joins its process group first: here torchrun's
+    # WORLD_SIZE without its MASTER_ADDR, so the rendezvous fails
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         train_cli.train(config.ALConfig(dataset="coco", device="cpu"))
     monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(AssertionError, match="train started work"):
