@@ -107,8 +107,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      LS/C and LT/C score calls (ms/call, images/s, LS/C's peak memory) and
      group-norm training steps (ms/step); (d) tests/test_learnability.py's
      configuration on the card (tiny, group norms, 32 learnable 96x128
-     images, 30 epochs, lr 0.005, steps 20/26): per-class AP50 > 0.7 for
-     aeroplane, bicycle and bird and their mean > 0.85, with its wall time.
+     images, 30 epochs, steps 20/26) at lr 0.0025 (``LEARN_LR``): per-class
+     AP50 > 0.7 for aeroplane, bicycle and bird and their mean > 0.85, with
+     its wall time.
  13. LL4AL, VAAL and SSM: ``al_loop`` with each at phase 11's data and cut
      from phase 11's backbone (``ll4al_phase``, ``vaal_phase``,
      ``ssm_phase``: their docstrings list the checks);
@@ -166,6 +167,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
      ``python3 chip_smoke.py --nccl`` (not part of the smoke run) runs
      phase 16's helpers, (b) and (a) on two ranks over NCCL, a card a rank
      (one card: NCCL's refusal).
+ 17. the selection experiments at a cut: (a)
+     ``experiments.scoring_deviation`` with ``DEVIATION_CONFIGS=gate`` (the
+     group-norm R50-FPN, bf16, trained as the full protocol trains it, 300
+     steps at B=4 on a bank of 96 600x1000 scenes with 150 warmup steps,
+     then a pool of 64 scored at score batch 32 in the six
+     gate configurations, budget 8): finite losses, one K2 and one K3 a step,
+     K1 2 a score call (3 with the slice, none on the window path, which
+     launches K2 twice), scores finite in [0, 1], the budget selected; each
+     configuration's selection Jaccard against ``faithful``, its peak device
+     memory and the wall time (``scoring_deviation_phase``); (b)
+     ``experiments.consistency_separation`` (the tiny group-norm Faster
+     R-CNN at 192x256, 1 seed, pool 96, 32 initial images, 4 epochs, 120 test
+     images): one K2 and one K3 a step, one K1 a detect of the evaluation,
+     two a score call; the AUC printed, not gated at this cut
+     (``consistency_separation_phase``); (c) the shapes K1, K2 and K3 were
+     called at in (a) and (b) (``roi_call_shapes``), and each kernel held
+     against its plain version at each of them at phases 3 and 6's limits,
+     with its time, plain time and bound (``selection_gate_holds``): K1 in
+     f32 and bf16 at the base detect's batch of 32 and the aug detect's 128
+     on 640x1024 (N=1000, 768 in mild), the slice's detects and the tiny
+     model's (N=64); K2 at the window path's inference shapes; K2 and K3
+     at each training shape.
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
 K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
@@ -176,8 +199,12 @@ per COCO step, ``launches_coco``, and their times on COCO's canvases,
 ``coco``, from phase 15; K1's time and bound on the shrink slice's
 512x832 canvas and launches per such score call, ``shrink_slice``, and
 K1/K2/K3's launches on rank 0 of the two-rank loop, ``launches_dp``, from
-phase 16),
-its time (K5 and K6: on weights restaged once; ``ms_with_restaging``
+phase 16; K1's per score call of each gate configuration and per stage of
+the separation run, K2/K3's per step of both experiments and K2's per
+window score call, ``launches_selection_gate``, and their holds at
+phase 17's shapes, ``selection_gate``, from phase 17),
+its time (K1: the median of three turns, each the kernel then its plain
+version; K5 and K6: on weights restaged once, ``ms_with_restaging``
 through the wrappers) and its plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type,
 from this run's inputs) and ``library_ms`` null: no single PyTorch call
@@ -189,6 +216,7 @@ The line before the last is a JSON object describing each kernel; the last is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -307,6 +335,17 @@ def special_rois(valid_hw) -> list:
             [0, 0, vw, vh], [vw - 40, 10, vw + 160, 40], [5, 5, 6, 300]]
 
 
+def normal_levels(device, b: int, c: int, canvas, seed: int) -> list:
+    """Unit-normal P2..P5 levels (B, H/s, W/s, C) of the canvas, f32, drawn
+    on the card from a seeded generator (host draws of the larger batches
+    would take seconds)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((b, canvas[0] // s, canvas[1] // s, c), generator=gen, device=device)
+            for s in (4, 8, 16, 32)]
+
+
 def roi_inputs(device, b: int = BATCH, n: int = 1000, c: int = 256, seed: int = SEED,
                canvas=CANVAS, valid_hw=VALID_HW):
     """Unit-normal P2..P5 levels of the canvas (640x1024 unless given), rois
@@ -314,9 +353,7 @@ def roi_inputs(device, b: int = BATCH, n: int = 1000, c: int = 256, seed: int = 
     import torch
 
     rng = np.random.default_rng(seed)
-    shapes = [(canvas[0] // s, canvas[1] // s) for s in (4, 8, 16, 32)]
-    feats = [torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(np.float32)).to(device)
-             for h, w in shapes]
+    feats = normal_levels(device, b, c, canvas, seed)
     cx = rng.uniform(0, valid_hw[1], (b, n))
     cy = rng.uniform(0, valid_hw[0], (b, n))
     sz = rng.uniform(4, 500, (b, n))
@@ -330,49 +367,62 @@ def roi_inputs(device, b: int = BATCH, n: int = 1000, c: int = 256, seed: int = 
     return feats, torch.from_numpy(rois).to(device), torch.from_numpy(valid).to(device)
 
 
-def kernel_phase(device, canvas=CANVAS, valid_hw=VALID_HW, label: str = "kernel") -> dict:
-    """K1 against its plain version at B=8, N=1000 on the canvas (phase 3;
-    phase 15(b) on COCO's canvases)."""
+# what a kernel's entry keeps of a hold at another shape
+HOLD_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes", "max_abs_err",
+             "max_abs_err_f32")
+
+
+def kernel_phase(device, canvas=CANVAS, valid_hw=VALID_HW, label: str = "kernel",
+                 b: int = BATCH, n: int = 1000, c: int = 256, rounds: int = 3) -> dict:
+    """K1 against its plain version in f32 and bf16 at B=8, N=1000 on the
+    canvas unless given (phase 3; phase 15(b) on COCO's canvases, 16(c) on
+    the slice's, 17 at the experiments' shapes). The bf16 kernel and its
+    plain version are timed in turns, ``rounds`` of each; ``ms`` and
+    ``plain_ms`` are the medians."""
     import torch
 
     from cald_tpu_torch.ops import roi_align as plain
     from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel
 
     scales = SCALES
-    feats, rois, valid = roi_inputs(device, canvas=canvas, valid_hw=valid_hw)
+    feats, rois, valid = roi_inputs(device, b=b, n=n, c=c, canvas=canvas, valid_hw=valid_hw)
     want = plain.multi_scale_roi_align(feats, rois, spatial_scales=scales, valid=valid)
     got = roi_align_kernel(feats, rois, valid, spatial_scales=scales)
     torch.cuda.synchronize()
     err_f32 = (got - want)[valid].abs().max().item()
     zero_f32 = got[~valid].abs().max().item()
+    del got
 
-    feats_bf = [f.bfloat16() for f in feats]
-    got_bf = roi_align_kernel(feats_bf, rois, valid, spatial_scales=scales)
+    feats = [f.bfloat16() for f in feats]
+    got_bf = roi_align_kernel(feats, rois, valid, spatial_scales=scales)
     torch.cuda.synchronize()
     err_bf16 = (got_bf.float() - want)[valid].abs().max().item()
     zero_bf16 = got_bf[~valid].float().abs().max().item()
+    del want
 
-    # the kernel is timed before and after the plain version's calls: the
-    # first timing is the card's first work after the build
-    k1 = lambda: roi_align_kernel(feats_bf, rois, valid, spatial_scales=scales)
-    ms_first = cuda_ms(k1, 20)
-    plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align(
-        feats_bf, rois, spatial_scales=scales, valid=valid), 5)
-    ms = cuda_ms(k1, 20)
-    print(f"{label}: roi_align B={BATCH} N=1000 C=256 on {canvas[0]}x{canvas[1]} "
+    k1 = lambda: roi_align_kernel(feats, rois, valid, spatial_scales=scales)
+    p1 = lambda: plain.multi_scale_roi_align(feats, rois, spatial_scales=scales, valid=valid)
+    turns, plain_turns = [], []
+    for _ in range(rounds):
+        turns.append(cuda_ms(k1, 20))
+        plain_turns.append(cuda_ms(p1, max(1, 40 // b)))
+    ms, plain_ms = float(np.median(turns)), float(np.median(plain_turns))
+    print(f"{label}: roi_align B={b} N={n} C={c} on {canvas[0]}x{canvas[1]} "
           f"valid={int(valid.sum())}: "
           f"f32 max_abs_err={err_f32:.3e} (atol 1e-4), bf16 max_abs_err={err_bf16:.3e} "
-          f"(atol 5e-2), invalid max={max(zero_f32, zero_bf16)}; bf16 kernel {ms_first:.4f} ms "
-          f"first, {ms:.4f} ms after the plain version, plain {plain_ms:.4f} ms")
+          f"(atol 5e-2), invalid max={max(zero_f32, zero_bf16)}; bf16 kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms (medians of {rounds} turns, kernel first: "
+          f"{', '.join(f'{t:.4f}' for t in turns)} / "
+          f"{', '.join(f'{t:.4f}' for t in plain_turns)})")
     if not (err_f32 <= 1e-4 and err_bf16 <= 5e-2 and zero_f32 == 0.0 and zero_bf16 == 0.0):
         raise AssertionError("roi_align kernel disagrees with its plain version")
     levels = plain.roi_levels(rois, scales)
-    level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
+    level_bytes, n_ops = roi_work(feats, rois, valid, levels)
     # no single PyTorch call computes RoIAlign (torchvision is not a dependency)
     return {"name": "roi_align", "route": "cuda", "source": "cald_tpu_torch/csrc/roi_align.cu",
             "replaces": "cald_tpu/ops/flm_roi_align.py:123", "max_abs_err": err_bf16,
-            "max_abs_err_f32": err_f32, "ms": ms, "ms_first": ms_first, "plain_ms": plain_ms,
-            "library_ms": None,
+            "max_abs_err_f32": err_f32, "ms": ms, "ms_turns": turns, "plain_ms": plain_ms,
+            "plain_ms_turns": plain_turns, "library_ms": None,
             **bound(level_bytes + got_bf.numel() * 2 + roi_index_bytes(rois, valid, levels),
                     n_ops, F32_OPS_S)}
 
@@ -393,19 +443,17 @@ def gt_boxes(rng, b: int, valid_hw=VALID_HW):
     return boxes, labels, valid
 
 
-def train_roi_inputs(device, c: int = 256, seed: int = SEED, canvas=CANVAS, valid_hw=VALID_HW):
+def train_roi_inputs(device, c: int = 256, seed: int = SEED, canvas=CANVAS, valid_hw=VALID_HW,
+                     b: int = TRAIN_BATCH, n: int = TRAIN_SAMPLES):
     """The training path's RoIAlign inputs: unit-normal P2..P5 levels of the
-    canvas and TRAIN_SAMPLES rois per image made like the sampler's: a
+    canvas and ``n`` (TRAIN_SAMPLES) rois per image made like the sampler's: a
     quarter positives (seeded gt boxes, jittered), random negatives, the
     border-crossing, tiny and extreme-aspect cases of ``roi_inputs``, and
     about 25% invalid slots (which keep their boxes, as the sampler's do)."""
     import torch
 
     rng = np.random.default_rng(seed + 10)
-    b, n = TRAIN_BATCH, TRAIN_SAMPLES
-    shapes = [(canvas[0] // s, canvas[1] // s) for s in (4, 8, 16, 32)]
-    feats = [torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(np.float32)).to(device)
-             for h, w in shapes]
+    feats = normal_levels(device, b, c, canvas, seed + 10)
     gt, _, gv = gt_boxes(rng, b, valid_hw)
     cx = rng.uniform(0, valid_hw[1], (b, n))
     cy = rng.uniform(0, valid_hw[0], (b, n))
@@ -425,35 +473,60 @@ def train_roi_inputs(device, c: int = 256, seed: int = SEED, canvas=CANVAS, vali
             torch.from_numpy(valid).to(device))
 
 
-def train_kernel_phase(device, canvas=CANVAS, valid_hw=VALID_HW,
-                       label: str = "train kernels") -> list[dict]:
-    """K2 and K3 against their plain versions at the training shapes (phase
-    6; phase 15(b) on COCO's canvases)."""
+def train_kernel_phase(device, canvas=CANVAS, valid_hw=VALID_HW, label: str = "train kernels",
+                       b: int = TRAIN_BATCH, s: int = TRAIN_SAMPLES, c: int = 256,
+                       backward: bool = True) -> list[dict]:
+    """K2 and (with ``backward``) K3 against their plain versions at the
+    training shapes, B=4 and S=512 on the canvas unless given (phase 6;
+    phase 15(b) on COCO's canvases; phase 17 at the experiments' shapes, K2
+    alone at the window path's inference shapes)."""
     import torch
 
     from cald_tpu_torch.ops import roi_align as plain
     from cald_tpu_torch.ops.roi_align_cuda import roi_align_bwd_kernel, roi_align_train_fwd_kernel
 
-    feats, rois, valid = train_roi_inputs(device, canvas=canvas, valid_hw=valid_hw)
+    feats, rois, valid = train_roi_inputs(device, c=c, canvas=canvas, valid_hw=valid_hw, b=b, n=s)
     levels = plain.roi_levels(rois, SCALES).contiguous()
     shapes = [f.shape for f in feats]
-    cot = torch.randn((*rois.shape[:2], 7, 7, feats[0].shape[-1]), device=device,
-                      generator=torch.Generator(device=device).manual_seed(SEED))
     want = plain.multi_scale_roi_align(feats, rois, spatial_scales=SCALES, valid=valid,
                                        levels=levels, out_dtype=torch.float32)
-    want_g = plain.multi_scale_roi_align_backward(cot, rois, valid, levels, shapes,
-                                                  spatial_scales=SCALES)
     feats_bf = [f.bfloat16() for f in feats]
     fwd = lambda fs: roi_align_train_fwd_kernel(fs, rois, valid, levels, spatial_scales=SCALES)
     bwd = lambda c: roi_align_bwd_kernel(c, rois, valid, levels, shapes, spatial_scales=SCALES)
 
     got, got_bf = fwd(feats), fwd(feats_bf)
-    got_g = bwd(cot)
-    dead = bwd(cot * (~valid)[..., None, None, None])
     torch.cuda.synchronize()
     fwd_f32 = (got - want).abs().max().item()
     fwd_bf16 = (got_bf - want).abs().max().item()
     zero = max(got[~valid].abs().max().item(), got_bf[~valid].abs().max().item())
+    del got_bf, want, feats
+    fwd_ms = cuda_ms(lambda: fwd(feats_bf), 20)
+    fwd_plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align(
+        feats_bf, rois, spatial_scales=SCALES, valid=valid, levels=levels,
+        out_dtype=torch.float32), max(1, 20 // b))
+    print(f"{label}: B={b} S={s} C={c} on {canvas[0]}x{canvas[1]} valid={int(valid.sum())}: "
+          f"K2 f32 max_abs_err={fwd_f32:.3e} (atol 1e-4), bf16 {fwd_bf16:.3e} (atol 5e-2); "
+          f"invalid out max={zero}; K2 bf16 {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms")
+    if not (fwd_f32 <= 1e-4 and fwd_bf16 <= 5e-2 and zero == 0.0):
+        raise AssertionError("the training RoIAlign forward disagrees with its plain version")
+    src = "cald_tpu_torch/csrc/roi_align.cu"
+    level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
+    index_bytes = roi_index_bytes(rois, valid, levels)
+    entries = [{"name": "roi_align_train_fwd", "route": "cuda", "source": src,
+                "replaces": "cald_tpu/ops/pallas_roi_align.py:132", "max_abs_err": fwd_bf16,
+                "max_abs_err_f32": fwd_f32, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                "library_ms": None,
+                **bound(level_bytes + got.numel() * 4 + index_bytes, n_ops, F32_OPS_S)}]
+    if not backward:
+        return entries
+
+    cot = torch.randn((b, s, 7, 7, c), device=device,
+                      generator=torch.Generator(device=device).manual_seed(SEED))
+    want_g = plain.multi_scale_roi_align_backward(cot, rois, valid, levels, shapes,
+                                                  spatial_scales=SCALES)
+    got_g = bwd(cot)
+    dead = bwd(cot * (~valid)[..., None, None, None])
+    torch.cuda.synchronize()
     bwd_f32 = max((g - w).abs().max().item() for g, w in zip(got_g, want_g))
     # the gradient as the training path hands it to bf16 levels: one cast
     g_bf = [g.bfloat16().float() for g in got_g]
@@ -462,44 +535,26 @@ def train_kernel_phase(device, canvas=CANVAS, valid_hw=VALID_HW,
                       for g, w in zip(g_bf, want_g))
     dead_max = max(g.abs().max().item() for g in dead)
 
-    fwd_ms = cuda_ms(lambda: fwd(feats_bf), 20)
-    fwd_plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align(
-        feats_bf, rois, spatial_scales=SCALES, valid=valid, levels=levels,
-        out_dtype=torch.float32), 5)
     bwd_ms = cuda_ms(lambda: bwd(cot), 20)
     bwd_plain_ms = cuda_ms(lambda: plain.multi_scale_roi_align_backward(
-        cot, rois, valid, levels, shapes, spatial_scales=SCALES), 5)
-    _, u_rois, u_valid = roi_inputs(device, b=TRAIN_BATCH, n=TRAIN_SAMPLES, c=1, canvas=canvas,
-                                    valid_hw=valid_hw)
+        cot, rois, valid, levels, shapes, spatial_scales=SCALES), max(1, 20 // b))
+    _, u_rois, u_valid = roi_inputs(device, b=b, n=s, c=1, canvas=canvas, valid_hw=valid_hw)
     u_levels = plain.roi_levels(u_rois, SCALES).contiguous()
     bwd_uniform_ms = cuda_ms(lambda: roi_align_bwd_kernel(
         cot, u_rois, u_valid, u_levels, shapes, spatial_scales=SCALES), 20)
-    print(f"{label}: B={TRAIN_BATCH} S={TRAIN_SAMPLES} C=256 on {canvas[0]}x{canvas[1]} "
-          f"valid={int(valid.sum())}: "
-          f"K2 f32 max_abs_err={fwd_f32:.3e} (atol 1e-4), bf16 {fwd_bf16:.3e} (atol 5e-2); "
-          f"K3 f32 max_abs_err={bwd_f32:.3e} (atol 1e-4), bf16 {bwd_bf16:.3e} (atol 5e-2 + "
-          f"1e-2 rel); invalid out max={zero}, invalid-only gradient max={dead_max}")
-    print(f"{label}: K2 bf16 {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms; "
-          f"K3 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; K3 on uniform rois "
-          f"{bwd_uniform_ms:.4f} ms")
-    if not (fwd_f32 <= 1e-4 and fwd_bf16 <= 5e-2 and bwd_f32 <= 1e-4 and bwd_bf16_ok
-            and zero == 0.0 and dead_max == 0.0):
-        raise AssertionError("a training RoIAlign kernel disagrees with its plain version")
-    src = "cald_tpu_torch/csrc/roi_align.cu"
-    level_bytes, n_ops = roi_work(feats_bf, rois, valid, levels)
-    index_bytes = roi_index_bytes(rois, valid, levels)
-    fwd_bound = bound(level_bytes + got.numel() * 4 + index_bytes, n_ops, F32_OPS_S)
+    print(f"{label}: K3 f32 max_abs_err={bwd_f32:.3e} (atol 1e-4), bf16 {bwd_bf16:.3e} "
+          f"(atol 5e-2 + 1e-2 rel); invalid-only gradient max={dead_max}; K3 {bwd_ms:.4f} ms, "
+          f"plain {bwd_plain_ms:.4f} ms; K3 on uniform rois {bwd_uniform_ms:.4f} ms")
+    if not (bwd_f32 <= 1e-4 and bwd_bf16_ok and dead_max == 0.0):
+        raise AssertionError("the training RoIAlign backward disagrees with its plain version")
     # K3 reads grad_out (f32) and writes every level's f32 gradient
-    bwd_bound = bound(cot.numel() * 4 + sum(g.numel() * 4 for g in got_g) + index_bytes,
-                      n_ops, F32_OPS_S)
-    return [{"name": "roi_align_train_fwd", "route": "cuda", "source": src,
-             "replaces": "cald_tpu/ops/pallas_roi_align.py:132", "max_abs_err": fwd_bf16,
-             "max_abs_err_f32": fwd_f32, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-             "library_ms": None, **fwd_bound},
-            {"name": "roi_align_bwd", "route": "cuda", "source": src,
-             "replaces": "cald_tpu/ops/pallas_roi_align.py:534", "max_abs_err": bwd_bf16,
-             "max_abs_err_f32": bwd_f32, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-             "ms_uniform_rois": bwd_uniform_ms, "library_ms": None, **bwd_bound}]
+    entries.append({"name": "roi_align_bwd", "route": "cuda", "source": src,
+                    "replaces": "cald_tpu/ops/pallas_roi_align.py:534", "max_abs_err": bwd_bf16,
+                    "max_abs_err_f32": bwd_f32, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                    "ms_uniform_rois": bwd_uniform_ms, "library_ms": None,
+                    **bound(cot.numel() * 4 + sum(g.numel() * 4 for g in got_g) + index_bytes,
+                            n_ops, F32_OPS_S)})
+    return entries
 
 
 # the gains of tests/test_golden_parity.py, so that a random detector's scores
@@ -1602,13 +1657,23 @@ def group_al_phase(device, kernels: dict, card: str, workdir: str) -> dict:
 
 
 LEARN_EPOCHS = 30                # tests/test_learnability.py's configuration
+# tests/test_learnability.py's lr, 0.005, fails the limits below at some
+# seeds in both packages on the CPU, where a run is deterministic: the JAX
+# package at seed 4 of 0-7, the port at seed 6, whose loss goes non-finite
+# (python tests/learnability_seeds.py --package jax|torch --lr 0.005). On
+# the card the run-to-run arithmetic (atomics, cuDNN) moves the trajectory,
+# and seed 0 failed there 3 runs in 20. At 0.0025 every seed of 0-7 passes
+# in both packages, and seed 0 passed 10 runs in 10 on the card
+# (learnability_repeat.py), so the phase trains at that lr.
+LEARN_LR = 0.0025
 
 
-def learnability_phase(device, kernels: dict, card: str, workdir: str) -> dict:
+def learnability_phase(device, kernels: dict, card: str, workdir: str,
+                       lr: float = LEARN_LR) -> dict:
     """Phase 12(d): the JAX package's learnability configuration on the card
-    (tiny, group norms, 32 learnable 96x128 images, 30 epochs, lr 0.005,
-    steps 20/26, random, 1 cycle): per-class AP50 > 0.7 for aeroplane,
-    bicycle and bird, and their mean > 0.85."""
+    (tiny, group norms, 32 learnable 96x128 images, 30 epochs, steps 20/26,
+    random, 1 cycle) at ``lr``: per-class AP50 > 0.7 for aeroplane, bicycle
+    and bird, and their mean > 0.85."""
     from cald_tpu_torch.cli import driver
     from cald_tpu_torch.cli.config import ALConfig
     from cald_tpu_torch.data.synthetic import make_learnable_voc
@@ -1619,7 +1684,7 @@ def learnability_phase(device, kernels: dict, card: str, workdir: str) -> dict:
     cfg = ALConfig(dataset="voc2007", data_path=root, model="faster", strategy="random",
                    tiny=True, norm="group", cycles=1, epochs=LEARN_EPOCHS, batch_size=4,
                    init_num=32, budget_num=1, score_batch_size=4, workers=4, min_size=96,
-                   max_size=128, max_boxes=8, print_freq=100000, lr=0.005, lr_steps=(20, 26),
+                   max_size=128, max_boxes=8, print_freq=100000, lr=lr, lr_steps=(20, 26),
                    aspect_ratio_group_factor=0, output_dir=os.path.join(workdir, "learn_out"),
                    device=device.type).resolve()
     counts = StageCounts(driver, kernels, device)
@@ -1632,10 +1697,10 @@ def learnability_phase(device, kernels: dict, card: str, workdir: str) -> dict:
     per_class = history[0]["eval"]["per_class_ap50"]
     present = {k: per_class.get(k, 0.0) for k in ("aeroplane", "bicycle", "bird")}
     mean = float(np.mean(list(present.values())))
-    print(f"learnability: tiny group-norm detector, {LEARN_EPOCHS} epochs, {steps} steps: "
-          f"AP50 {json.dumps({k: round(v, 4) for k, v in present.items()})}, mean {mean:.4f} "
-          f"(limits 0.7 each, 0.85 mean); launches train {train_k}, eval {infer_k}; wall "
-          f"{wall:.2f} s on {card}")
+    print(f"learnability: tiny group-norm detector, {LEARN_EPOCHS} epochs, {steps} steps, "
+          f"lr {lr}: AP50 {json.dumps({k: round(v, 4) for k, v in present.items()})}, "
+          f"mean {mean:.4f} (limits 0.7 each, 0.85 mean); launches train {train_k}, eval "
+          f"{infer_k}; wall {wall:.2f} s on {card}")
     if not (train_k["roi_align_train_fwd"] == steps == train_k["roi_align_bwd"]
             and infer_k["roi_align"] == len(counts.detects)):
         raise AssertionError("the learnability run did not go through K2/K3 and K1")
@@ -3083,9 +3148,7 @@ def shrink_slice_phase(model, device, pool, kernels: dict, full_ms: float, card:
     ms = _warm_ms(lambda: s["fn"](images, valid_hw, draw), 5)
     print(f"shrink slice: 5 warm score calls of B={BATCH}: {ms:.1f} ms/call against the full "
           f"canvas's {full_ms:.1f} (phase 5), {BATCH / ms * 1e3:.2f} images/s on {card}")
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes", "max_abs_err",
-            "max_abs_err_f32")
-    return {"kernel": {**{k: entry[k] for k in keys}, "launches_per_score_call": per_call},
+    return {"kernel": {**{k: entry[k] for k in HOLD_KEYS}, "launches_per_score_call": per_call},
             "mean_abs_diff": float(diff.mean()), "overlap": overlap, "score_ms": ms}
 
 
@@ -3138,6 +3201,242 @@ def cifar_phase(device, card: str) -> dict:
     print(f"cifar: 20 warm joint steps at batch {cfg.batch}, width {cfg.width}: {ms:.2f} "
           f"ms/step, {cfg.batch / ms * 1e3:.1f} images/s on {card}")
     return {"history": hist, "step_ms": ms, "wall_s": wall}
+
+
+# phase 17: the selection experiments at a cut (the full protocol: --seeds 4,
+# bank 96, 300 steps, pool 512, budget 50; --seeds 3, pool 400, init 120, 16 epochs).
+# Scoring deviation keeps the protocol's training: at 100 steps on 32 scenes
+# the warmup, min(200, steps // 2), ends at step 50, and the recipe went
+# non-finite in 3 of 8 runs there (2 of 8 with the plain RoIAlign;
+# learnability_repeat.py --phase deviation --steps 100 --bank 32)
+P17_DEVIATION = dict(seeds=1, bank=96, steps=300, pool=64, budget=8, score_batch=32)
+P17_SEPARATION = dict(seeds=1, pool=96, init=32, epochs=4, test_images=120, score_batch=16)
+P17_SEPARATION_BATCH = 8           # consistency_separation's training batch
+# K1 launches a score call by configuration: 2 (base and aug detects), 3 with
+# the shrink slice, none on the window path, which launches K2 instead
+P17_K1_PER_CALL = {"faithful+slice": 3, "window": 0}
+
+
+class KernelCounts:
+    """Reads the wrappers' launch counts around a function: ``wrap(fn,
+    record)`` returns fn, counting. Each call sets every count to 0 just
+    before it and appends {kernel: launches} to ``record`` just after."""
+
+    def __init__(self, kernels: dict):
+        self.kernels = kernels
+
+    def wrap(self, fn, record: list):
+        def counted(*args, **kw):
+            for k in self.kernels.values():
+                k.launches = 0
+            out = fn(*args, **kw)
+            record.append({name: k.launches for name, k in self.kernels.items()})
+            return out
+        return counted
+
+
+def _argv(cut: dict) -> list[str]:
+    return [a for k, v in cut.items() for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def scoring_deviation_phase(device, kernels: dict, card: str) -> dict:
+    """Phase 17(a): ``experiments.scoring_deviation.main`` with
+    ``DEVIATION_CONFIGS=gate`` at P17_DEVIATION's cut on the card (the
+    group-norm R50-FPN in bf16, 600x1000 scenes on the 640x1024 canvas):
+    finite losses at every step, one K2 and one K3 launch a step and no
+    K1 in training; per configuration, K1 P17_K1_PER_CALL (else 2) a score
+    call, the window path K2 twice a call and no K1, no K3; scores finite in
+    [0, 1] and the budget selected; prints each configuration's Jaccard
+    against ``faithful``, its peak device memory, and the wall time."""
+    import torch
+
+    from cald_tpu_torch.experiments import scoring_deviation as sd
+
+    counts = KernelCounts(kernels)
+    train_runs, train_losses, score_runs, scores, picks, peaks = [], [], [], [], [], []
+    train_model, score_pool, cald_select = sd.train_model, sd.score_pool, sd.cald_select
+
+    def scored(*args, **kw):
+        torch.cuda.reset_peak_memory_stats(device)
+        c, corr = counts.wrap(score_pool, score_runs)(*args, **kw)
+        peaks.append(torch.cuda.max_memory_allocated(device) / 2 ** 30)
+        scores.append(c)
+        return c, corr
+
+    def selected(*args, **kw):
+        picks.append(cald_select(*args, **kw))
+        return picks[-1]
+
+    def training(*args, **kw):
+        model, losses = train_model(*args, **kw)
+        train_losses.append(losses)
+        return model, losses
+
+    os.environ["DEVIATION_CONFIGS"] = "gate"
+    sd.train_model = counts.wrap(training, train_runs)
+    sd.score_pool, sd.cald_select = scored, selected
+    t0 = time.perf_counter()
+    try:
+        summary = sd.main(["--device", str(device), *_argv(P17_DEVIATION)])
+    finally:
+        sd.train_model, sd.score_pool, sd.cald_select = train_model, score_pool, cald_select
+        os.environ.pop("DEVIATION_CONFIGS")
+    wall = time.perf_counter() - t0
+    names = list(sd.CONFIG_SETS["gate"])
+    cut = P17_DEVIATION
+    calls = math.ceil(cut["pool"] / cut["score_batch"])
+    losses, train = train_losses[0], train_runs[0]
+    print(f"deviation: {len(losses)} steps, losses {losses[0]:.3f} -> {losses[-1]:.3f}, "
+          f"launches {train}")
+    if len(losses) != cut["steps"] or not np.isfinite(losses).all():
+        raise AssertionError("deviation: training did not take finite steps")
+    if train != {**{k: 0 for k in kernels}, "roi_align_train_fwd": cut["steps"],
+                 "roi_align_bwd": cut["steps"]}:
+        raise AssertionError("deviation: training did not launch K2 and K3 once a step")
+    if len(score_runs) != len(names):
+        raise AssertionError(f"deviation: {len(score_runs)} scored configurations")
+    per_config = {}
+    for name, got, c, sel, peak in zip(names, score_runs, scores, picks, peaks):
+        k1 = P17_K1_PER_CALL.get(name, 2) * calls
+        want = {**{k: 0 for k in kernels}, "roi_align": k1,
+                "roi_align_train_fwd": 2 * calls if name == "window" else 0}
+        jac = summary[name][0]["selection_jaccard"] if name != "faithful" else 1.0
+        print(f"deviation: {name}: launches {got} (expected {want}), mean c {c.mean():.4f}, "
+              f"zero-score frac {np.mean(c == 0):.2f}, selection Jaccard vs faithful "
+              f"{jac:.4f}, peak {peak:.2f} GiB")
+        if got != want:
+            raise AssertionError(f"deviation: {name}: unexpected kernel launches")
+        if not (np.isfinite(c).all() and c.min() >= 0.0 and c.max() <= 1.0):
+            raise AssertionError(f"deviation: {name}: scores not finite in [0, 1]")
+        if len(set(sel.tolist())) != cut["budget"]:
+            raise AssertionError(f"deviation: {name}: the budget was not selected")
+        per_config[name] = {"launches_per_score_call": {k: v / calls for k, v in got.items()},
+                            "selection_jaccard": jac, "peak_gib": peak}
+    print(f"deviation: {wall:.2f} s on {card}")
+    return {"train": train, "steps": cut["steps"], "configs": per_config, "wall_s": wall,
+            "score_calls": calls}
+
+
+@contextlib.contextmanager
+def roi_call_shapes(record: set):
+    """While open, adds (kernel, canvas, B, N, C, level dtype) to ``record``
+    for every call of K1's, K2's and K3's wrappers; the canvas is P2's
+    shape times 4."""
+    from cald_tpu_torch.ops import roi_align_cuda as rc
+
+    classes = {"roi_align": rc.RoIAlignKernel, "roi_align_train_fwd": rc.RoIAlignTrainForward,
+               "roi_align_bwd": rc.RoIAlignBackward}
+    saved = {name: cls.__call__ for name, cls in classes.items()}
+
+    def recording(name, call):
+        def recorded(self, first, rois, *args, **kw):
+            # K1/K2 take the levels first; K3 the gradient, then (valid, levels, shapes)
+            shapes = args[2] if name == "roi_align_bwd" else [f.shape for f in first]
+            dtype = first.dtype if name == "roi_align_bwd" else first[0].dtype
+            b, h, w, c = shapes[0]
+            canvas = (4 * h, 4 * w)
+            if [tuple(x) for x in shapes] != [(b, h // k, w // k, c) for k in (1, 2, 4, 8)]:
+                raise AssertionError(f"{name}: levels {shapes} are not P2..P5 of a canvas")
+            record.add((name, canvas, b, rois.shape[1], c, str(dtype).removeprefix("torch.")))
+            return call(self, first, rois, *args, **kw)
+        return recorded
+
+    for name, cls in classes.items():
+        cls.__call__ = recording(name, saved[name])
+    try:
+        yield record
+    finally:
+        for name, cls in classes.items():
+            cls.__call__ = saved[name]
+
+
+# the valid region of the rois drawn for a hold on a canvas (else the canvas)
+HOLD_VALID_HW = {CANVAS: VALID_HW, SLICE_CANVAS: SLICE_VALID_HW}
+
+
+def selection_gate_holds(device, shapes: set, card: str) -> dict:
+    """Phase 17(c): K1, K2 and K3 against their plain versions, at phases 3
+    and 6's limits, at every (canvas, B, N, C) that phase 17's runs gave
+    them: K1 in f32 and bf16 (``kernel_phase``), K2 with K3 where the run
+    trained at that shape and alone where it was the window path's
+    inference forward (``train_kernel_phase``). Returns each kernel's holds:
+    the shape, its times, bound and errors."""
+    import torch
+
+    torch.cuda.empty_cache()
+    by_shape = {}
+    for name, canvas, b, n, c, dtype in shapes:
+        by_shape.setdefault((name, canvas, b, n, c), set()).add(dtype)
+    holds = {"roi_align": [], "roi_align_train_fwd": [], "roi_align_bwd": []}
+    for (name, canvas, b, n, c), dtypes in sorted(by_shape.items()):
+        if not dtypes <= {"float32", "bfloat16"}:
+            raise AssertionError(f"{name}: unexpected level dtypes {dtypes}")
+        label = f"gate hold {canvas[0]}x{canvas[1]} B={b} N={n}"
+        valid_hw = HOLD_VALID_HW.get(canvas, canvas)
+        if name == "roi_align":
+            entries = [kernel_phase(device, canvas, valid_hw, label, b=b, n=n, c=c, rounds=1)]
+        elif name == "roi_align_train_fwd":
+            trained = ("roi_align_bwd", canvas, b, n, c) in by_shape
+            entries = train_kernel_phase(device, canvas, valid_hw, label, b=b, s=n, c=c,
+                                         backward=trained)
+        elif ("roi_align_train_fwd", canvas, b, n, c) in by_shape:
+            continue                    # held with K2 at its shape
+        else:
+            raise AssertionError(f"K3 at {canvas} B={b} N={n} without K2")
+        for e in entries:
+            holds[e["name"]].append({"canvas": list(canvas), "b": b, "n": n, "c": c,
+                                     "dtypes": sorted(by_shape.get((e["name"], canvas, b, n, c),
+                                                                   dtypes)),
+                                     **{k: e[k] for k in HOLD_KEYS}})
+        torch.cuda.empty_cache()
+    for name, hs in holds.items():
+        for h in hs:
+            print(f"gate hold: {name} {h['canvas'][0]}x{h['canvas'][1]} B={h['b']} N={h['n']} "
+                  f"C={h['c']} {'/'.join(h['dtypes'])}: {h['ms']:.4f} ms, plain "
+                  f"{h['plain_ms']:.4f} ms, bound {h['bound_ms']:.4f} ms ({h['bound_by']}), "
+                  f"share {h['bound_ms'] / h['ms']:.3f}, max_abs_err {h['max_abs_err']:.3e} "
+                  f"on {card}")
+    return holds
+
+
+def consistency_separation_phase(device, kernels: dict, card: str) -> dict:
+    """Phase 17(b): ``experiments.consistency_separation.main`` at
+    P17_SEPARATION's cut on the card (the tiny group-norm Faster R-CNN at
+    192x256): one K2 and one K3 a training step, one K1 a detect of the
+    evaluation, two a score call of the pool scoring and of
+    ``score_and_select``, no K1 in training and no K2/K3 outside it; prints
+    the row (the AUC is not gated at this cut) and the wall time."""
+    from cald_tpu_torch.experiments import consistency_separation as cs
+
+    counts = KernelCounts(kernels)
+    stages = {"train": [], "eval": [], "score": [], "select": []}
+    saved = {name: getattr(cs, name) for name in ("train_cycle", "evaluate", "score_pool",
+                                                  "score_and_select")}
+    for stage, name in zip(stages, saved):
+        setattr(cs, name, counts.wrap(saved[name], stages[stage]))
+    t0 = time.perf_counter()
+    try:
+        rows = cs.main(["--device", str(device), *_argv(P17_SEPARATION)])
+    finally:
+        for name, fn in saved.items():
+            setattr(cs, name, fn)
+    wall = time.perf_counter() - t0
+    cut = P17_SEPARATION
+    steps = cut["epochs"] * math.ceil(cut["init"] / P17_SEPARATION_BATCH)
+    score_calls = math.ceil((cut["pool"] - cut["init"]) / cut["score_batch"])
+    none = {k: 0 for k in kernels}
+    want = {"train": {**none, "roi_align_train_fwd": steps, "roi_align_bwd": steps},
+            "eval": {**none, "roi_align": math.ceil(cut["test_images"] / cut["score_batch"])},
+            "score": {**none, "roi_align": 2 * score_calls},
+            "select": {**none, "roi_align": 2 * score_calls}}
+    got = {stage: runs[0] for stage, runs in stages.items()}
+    print(f"separation: {rows[0]}")
+    print(f"separation: launches {got} (expected {want}); {wall:.2f} s on {card}")
+    if got != want:
+        raise AssertionError("separation: unexpected kernel launches")
+    if not 0.0 <= rows[0]["auc_hard_vs_easy"] <= 1.0:
+        raise AssertionError("separation: AUC outside [0, 1]")
+    return {"launches": got, "steps": steps, "row": rows[0], "wall_s": wall}
 
 
 def nccl_check() -> int:
@@ -3306,6 +3605,26 @@ def main() -> int:
         dp_step_phase(device, card, p16)
         cifar_phase(device, card)
         print(f"phase 16: {time.perf_counter() - t16:.2f} s on {card}")
+
+        t17 = time.perf_counter()
+        with roi_call_shapes(set()) as gate_shapes:
+            deviation = scoring_deviation_phase(device, all_kernels, card)
+            separation = consistency_separation_phase(device, all_kernels, card)
+        gate_holds = selection_gate_holds(device, gate_shapes, card)
+        print(f"phase 17: {time.perf_counter() - t17:.2f} s on {card}")
+    sep = separation["launches"]
+    kernel["launches_selection_gate"] = {
+        "deviation_per_score_call": {name: c["launches_per_score_call"]["roi_align"]
+                                     for name, c in deviation["configs"].items()},
+        "separation": {stage: sep[stage]["roi_align"] for stage in ("eval", "score", "select")}}
+    for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
+        entry["launches_selection_gate"] = {
+            "deviation": {"launches": deviation["train"][name], "steps": deviation["steps"]},
+            "separation": {"launches": sep["train"][name], "steps": separation["steps"]}}
+    train_kernels[0]["launches_selection_gate"]["window_per_score_call"] = (
+        deviation["configs"]["window"]["launches_per_score_call"]["roi_align_train_fwd"])
+    for entry in (kernel, *train_kernels):
+        entry["selection_gate"] = gate_holds[entry["name"]]
     dl = dp["launches"]
     kernel["launches_dp"] = {"launches_rank0": dl["roi_align"]}
     for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
@@ -3324,15 +3643,13 @@ def main() -> int:
         entry["launches_vaal"] = {"launches": vaal["train_launches"][name],
                                   "task_steps": vaal["task_steps"]}
 
-    coco_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes", "max_abs_err",
-                 "max_abs_err_f32")
     cl = coco["launches"]
     kernel["launches_coco"] = {"launches": cl["roi_align"], "detects": coco["detects"]}
     for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
         entry["launches_coco"] = {"launches": cl[name], "steps": coco["steps"]}
     for entry, name in zip((kernel, *train_kernels),
                            ("roi_align", "roi_align_train_fwd", "roi_align_bwd")):
-        entry["coco"] = {key: {k: v[name][k] for k in coco_keys}
+        entry["coco"] = {key: {k: v[name][k] for k in HOLD_KEYS}
                          for key, v in coco_kernels.items()}
 
     print(json.dumps({"kernels": [kernel, train_kernels[0], train_kernels[1], group_kernel,

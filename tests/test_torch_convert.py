@@ -189,8 +189,8 @@ def test_jax_initialized_vae_gives_the_same_recon():
 
 
 # the modules of the AL loop, its strategies, COCO, the native decoder, the
-# trainer, data parallelism, the CIFAR demo and the drawing, each of which
-# must import on its own
+# trainer, data parallelism, the CIFAR demo, the drawing and the selection
+# experiments, each of which must import on its own
 AL_LOOP_MODULES = (
     "cli.config", "cli.driver", "cli.main", "cli.train", "convert.torchvision_import",
     "data.batching", "data.coco", "data.loader", "data.masks", "data.pool", "data.records",
@@ -199,7 +199,8 @@ AL_LOOP_MODULES = (
     "models.mobilenetv3", "models.retinanet", "models.vae", "native",
     "strategies.ll4al", "strategies.random_strategy", "strategies.ssm", "strategies.vaal",
     "parallel", "parallel.mesh", "cifar", "cifar.data", "cifar.driver", "cifar.resnet",
-    "utils", "utils.viz")
+    "utils", "utils.viz", "experiments", "experiments.scoring_deviation",
+    "experiments.consistency_separation")
 
 
 def test_port_imports_no_jax():

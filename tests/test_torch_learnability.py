@@ -5,7 +5,7 @@ dataset (color-coded rectangles) to high per-class AP50. Same configuration
 and thresholds as the JAX test; the class mean over all 20 VOC classes stays
 low by design (absent classes count, voc_eval.py:258-266). Runs on the CPU
 (``device="cpu"``); ``chip_smoke.py`` phase 12 runs the same configuration
-on the card."""
+on the card at lr 0.0025 (``chip_smoke.LEARN_LR``)."""
 
 import numpy as np
 import pytest
