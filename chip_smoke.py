@@ -189,6 +189,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
      on 640x1024 (N=1000, 768 in mild), the slice's detects and the tiny
      model's (N=64); K2 at the window path's inference shapes; K2 and K3
      at each training shape.
+ 18. the AL-curve experiments at a cut: ``experiments.
+     selection_effectiveness_hard.run`` (a hard/easy pool of 90 192x256
+     images, 16 initial, budget 50, 32 test images) and
+     ``experiments.selection_effectiveness.run`` (an imbalanced pool of 30
+     96x128 images, 12 initial, budget 6, 12 test images), each with cald
+     and random, 2 cycles of 2 epochs, the tiny group-norm Faster R-CNN:
+     finite rows, the labeled set grown by the budget, random's rows equal
+     to a CPU replay of its draws, one K2 and one K3 a training step, one
+     K1 a detect of the evaluation and two a CALD score call
+     (``al_curves_phase``); then K1, K2 and K3 held against their plain
+     versions at each shape these runs gave them that phase 17 did not
+     (``selection_gate_holds``).
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
 K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
@@ -202,7 +214,10 @@ K1/K2/K3's launches on rank 0 of the two-rank loop, ``launches_dp``, from
 phase 16; K1's per score call of each gate configuration and per stage of
 the separation run, K2/K3's per step of both experiments and K2's per
 window score call, ``launches_selection_gate``, and their holds at
-phase 17's shapes, ``selection_gate``, from phase 17),
+phase 17's shapes, ``selection_gate``, from phase 17; K1's per evaluation
+detect and CALD score call and K2/K3's per step of the AL-curve runs,
+``launches_al_curves``, and their holds at phase 18's new shapes,
+``al_curves``, from phase 18),
 its time (K1: the median of three turns, each the kernel then its plain
 version; K5 and K6: on weights restaged once, ``ms_with_restaging``
 through the wrappers) and its plain version's, its bound (the larger of
@@ -3439,6 +3454,95 @@ def consistency_separation_phase(device, kernels: dict, card: str) -> dict:
     return {"launches": got, "steps": steps, "row": rows[0], "wall_s": wall}
 
 
+# phase 18: the AL-curve experiments at a cut (the full runs: the hard/easy
+# pool of 400, 50 initial, 3 cycles of 14 epochs; the imbalanced pool of 60,
+# 12 initial, 4 cycles of 16 epochs; each over seeds). One seed, cald and
+# random, 2 cycles of 2 epochs: cycle 0 trains, evaluates and selects,
+# cycle 1 trains on the grown set and evaluates
+P18_SEED = 0
+P18_HARD = dict(cycles=2, pool_n=90, epochs=2, init_n=16, test_n=32)
+P18_EFFECTIVENESS = dict(cycles=2, pool_n=30, epochs=2, test_n=12)
+P18_SCORE_BATCH = {"hard": 16, "effectiveness": 8}       # the scripts' score batches
+
+
+def al_curves_phase(device, kernels: dict, card: str, workdir: str) -> dict:
+    """Phase 18: ``experiments.selection_effectiveness_hard.run`` and
+    ``experiments.selection_effectiveness.run`` on the card at P18_HARD's
+    and P18_EFFECTIVENESS's cuts, each with cald and random (the tiny
+    group-norm Faster R-CNN, the scripts' configurations): rows finite and in
+    [0, 1], the labeled set grown by the budget in cycle 0 (CALD: or by
+    int(1.2 x budget), stage 2's cap); random's rows
+    (labeled, and the hard fraction of each cycle's new images) equal to
+    ``random_rows``' replay of its draws on the CPU; one K2 and one K3 a
+    training step and no K1 in training; one K1 a detect of the evaluation;
+    two a CALD score call (its base and aug detects, ceil(unlabeled / score
+    batch) calls) and none for random. Prints each run's rows and time split
+    and the phase's wall time; returns the launches by stage."""
+    import torch
+
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.data.voc import get_voc2007
+    from cald_tpu_torch.experiments import selection_effectiveness as se
+    from cald_tpu_torch.experiments import selection_effectiveness_hard as seh
+
+    t0 = time.perf_counter()
+    none = {k: 0 for k in kernels}
+    totals = {"steps": 0, "train": dict(none), "eval_detects": 0, "eval": dict(none),
+              "score_calls": 0, "score": dict(none)}
+    for name, module, cut in (("hard", seh, P18_HARD), ("effectiveness", se, P18_EFFECTIVENESS)):
+        init = cut.get("init_n", 12)
+        budget = seh.BUDGET if module is seh else 6
+        for strategy in ("cald", "random"):
+            label = f"al curves {name} {strategy}"
+            tmp = os.path.join(workdir, f"{name}_{strategy}")
+            with StageCounts(driver, kernels, device) as sc:
+                rows = module.run(strategy, P18_SEED, tmp, device=str(device), **cut)
+            torch.cuda.synchronize()
+            print(f"{label}: rows {rows}")
+            if module is seh:
+                labeled = [r["labeled"] for r in rows]
+                values = [r[k] for r in rows for k in ("mAP", "AP50", "hard_frac_selected")]
+            else:
+                labeled = [n for n, _, _ in rows]
+                values = [v for _, m, b in rows for v in (m, b)]
+            if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+                raise AssertionError(f"{label}: rows not finite in [0, 1]")
+            # CALD's stage 2 takes every zero-detection candidate, up to
+            # int(mutual_range * budget), where the detector finds nothing
+            grown = {budget, int(1.2 * budget)} if strategy == "cald" else {budget}
+            if len(set(labeled)) != 1 or labeled[0] - init not in grown:
+                raise AssertionError(f"{label}: the labeled set did not grow by the budget")
+            if strategy == "random" and module is seh:
+                ds = get_voc2007(os.path.join(tmp, f"train_{P18_SEED}"), "trainval")
+                replay = seh.random_rows(ds, cycles=cut["cycles"], init_n=init, seed=P18_SEED)
+                keep = [(r["labeled"], r["hard_frac_selected"]) for r in rows]
+                if keep != [(r["labeled"], r["hard_frac_selected"]) for r in replay]:
+                    raise AssertionError(f"{label}: rows {keep} differ from the replay {replay}")
+            steps = len(sc.steps)
+            eval_detects = sum(1 for stage, _ in sc.detects if stage == "eval")
+            calls = (math.ceil((cut["pool_n"] - init) / P18_SCORE_BATCH[name])
+                     if strategy == "cald" else 0)
+            got = {stage: sc.total(stage) for stage in ("train", "eval", "score")}
+            want = {"train": {**none, "roi_align_train_fwd": steps, "roi_align_bwd": steps},
+                    "eval": {**none, "roi_align": eval_detects},
+                    "score": {**none, "roi_align": 2 * calls}}
+            print(f"{label}: {steps} steps, {eval_detects} eval detects, {calls} score calls; "
+                  f"launches {got} (expected {want})")
+            if got != want or steps == 0 or eval_detects != cut["cycles"] * math.ceil(
+                    cut["test_n"] / P18_SCORE_BATCH[name]):
+                raise AssertionError(f"{label}: unexpected kernel launches")
+            if sum(1 for stage, _ in sc.detects if stage == "score") != 2 * calls:
+                raise AssertionError(f"{label}: not two detects a score call")
+            totals["steps"] += steps
+            totals["eval_detects"] += eval_detects
+            totals["score_calls"] += calls
+            for stage in ("train", "eval", "score"):
+                totals[stage] = {k: totals[stage][k] + got[stage][k] for k in kernels}
+    wall = time.perf_counter() - t0
+    print(f"al curves: {wall:.2f} s on {card}")
+    return {**totals, "wall_s": wall}
+
+
 def nccl_check() -> int:
     """``chip_smoke.py --nccl``, outside the smoke run: phase 16's helpers
     on two ranks over NCCL, one card a rank (``rank % device_count``). With
@@ -3612,6 +3716,20 @@ def main() -> int:
             separation = consistency_separation_phase(device, all_kernels, card)
         gate_holds = selection_gate_holds(device, gate_shapes, card)
         print(f"phase 17: {time.perf_counter() - t17:.2f} s on {card}")
+
+        t18 = time.perf_counter()
+        with roi_call_shapes(set()) as curve_shapes:
+            curves = al_curves_phase(device, all_kernels, card, os.path.join(workdir, "p18"))
+        curve_holds = selection_gate_holds(device, curve_shapes - gate_shapes, card)
+        print(f"phase 18: {time.perf_counter() - t18:.2f} s on {card}")
+    for entry in (kernel, *train_kernels):
+        entry["al_curves"] = curve_holds[entry["name"]]
+    kernel["launches_al_curves"] = {
+        "eval": {"launches": curves["eval"]["roi_align"], "detects": curves["eval_detects"]},
+        "score": {"launches": curves["score"]["roi_align"], "calls": curves["score_calls"]}}
+    for entry, name in zip(train_kernels, ("roi_align_train_fwd", "roi_align_bwd")):
+        entry["launches_al_curves"] = {"launches": curves["train"][name],
+                                       "steps": curves["steps"]}
     sep = separation["launches"]
     kernel["launches_selection_gate"] = {
         "deviation_per_score_call": {name: c["launches_per_score_call"]["roi_align"]

@@ -200,7 +200,8 @@ AL_LOOP_MODULES = (
     "strategies.ll4al", "strategies.random_strategy", "strategies.ssm", "strategies.vaal",
     "parallel", "parallel.mesh", "cifar", "cifar.data", "cifar.driver", "cifar.resnet",
     "utils", "utils.viz", "experiments", "experiments.scoring_deviation",
-    "experiments.consistency_separation")
+    "experiments.consistency_separation", "experiments.selection_effectiveness",
+    "experiments.selection_effectiveness_hard")
 
 
 def test_port_imports_no_jax():
@@ -225,6 +226,26 @@ def test_port_imports_no_jax():
     # RetinaNet and MobileNetV3
     assert len(loaded) >= 60
     assert {f"cald_tpu_torch.{m}" for m in AL_LOOP_MODULES} <= loaded
+
+
+@pytest.mark.parametrize("script", ["precision_split"])
+def test_card_scripts_import_no_jax_and_refuse_without_cuda(script):
+    """The root script that runs the port's experiment on the card imports
+    neither JAX nor the JAX package, and exit non-zero without a CUDA
+    device unless told ``--device cpu``."""
+    root = Path(__file__).resolve().parent.parent
+    code = (f"import sys\nimport {script}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+            "'cald_tpu')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(root / f"{script}.py")],
+                         capture_output=True, text=True, timeout=120, cwd=root)
+    assert out.returncode != 0 and "--device cpu" in out.stderr
 
 
 def test_chip_smoke_refuses_without_cuda():
