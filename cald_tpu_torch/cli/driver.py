@@ -99,7 +99,8 @@ from cald_tpu_torch.augment.suite import expand_aug_string, generator_draw
 from cald_tpu_torch.cli.config import ALConfig
 from cald_tpu_torch.convert.torchvision_import import load_backbone_, load_state_dict
 from cald_tpu_torch.data.batching import (
-    create_aspect_ratio_groups, default_canvases, grouped_batch_indices, make_padded_batch,
+    create_aspect_ratio_groups, default_canvases, grouped_batch_indices, images_tensor,
+    make_padded_batch,
 )
 from cald_tpu_torch.data.coco import get_coco
 from cald_tpu_torch.data.loader import BatchLoader, decode_image
@@ -231,7 +232,7 @@ def _loaders(cfg: ALConfig, dataset, indices, *, batch_size, train: bool, canvas
         dataset, batches, canvases=canvases, min_size=cfg.min_size,
         max_size=cfg.max_size, max_boxes=cfg.max_boxes,
         transform=random_horizontal_flip if train else None,
-        num_workers=cfg.workers, seed=seed)
+        num_workers=cfg.workers, seed=seed, device=cfg.device)
 
 
 def _sync_len(n: int) -> int:
@@ -311,8 +312,8 @@ def _task_epoch(cfg: ALConfig, step_fn, loader, *, cycle: int, epoch: int, devic
 
 
 def _tensors(batch, device) -> list[torch.Tensor]:
-    return [torch.from_numpy(a).to(device) for a in (
-        batch.images, batch.valid_hw, batch.boxes, batch.labels, batch.box_valid)]
+    return [images_tensor(batch.images, device), *(torch.from_numpy(a).to(device) for a in (
+        batch.valid_hw, batch.boxes, batch.labels, batch.box_valid))]
 
 
 def train_cycle(cfg: ALConfig, num_classes: int, dataset, pool: ALPoolState, canvases,
@@ -397,8 +398,8 @@ def _vaal_adversary_epoch(cfg: ALConfig, trainer: VAALTrainer, dataset, pool: AL
     unlab_iter = itertools.cycle(unlab_loader)
     for lb in _Lockstep(lab_loader):
         ub = next(unlab_iter)
-        vloss, dloss = trainer.train_step(torch.from_numpy(lb.images).to(device),
-                                          torch.from_numpy(ub.images).to(device), draw)
+        vloss, dloss = trainer.train_step(images_tensor(lb.images, device),
+                                          images_tensor(ub.images, device), draw)
     print(f"vaal cycle {cycle} epoch {epoch}: vae_loss {float(vloss):.2f} "
           f"dis_loss {float(dloss):.4f}")
 
@@ -436,7 +437,7 @@ def _detect_host_fn(cfg: ALConfig, model: Detector, canvases, device):
             batch = make_padded_batch([img], [rec], canvases[0], min_size=cfg.min_size,
                                       max_size=cfg.max_size, max_boxes=1, indices=[0])
             with torch.inference_mode():
-                dets = model.detect(torch.from_numpy(batch.images).to(device),
+                dets = model.detect(images_tensor(batch.images, device),
                                     torch.from_numpy(batch.valid_hw).to(device))
                 dets = dets.rescale(torch.from_numpy(batch.scale).to(device))
             v = dets.valid[0].cpu().numpy()
@@ -455,7 +456,7 @@ def _ssm_pool_detections(model: Detector, loader, scfg: SSMConfig, device) -> di
     out: dict[int, dict] = {}
     with torch.inference_mode():
         for batch in loader:
-            dets = model.detect(torch.from_numpy(batch.images).to(device),
+            dets = model.detect(images_tensor(batch.images, device),
                                 torch.from_numpy(batch.valid_hw).to(device))
             dets = dets.rescale(torch.from_numpy(batch.scale).to(device))
             boxes, rows, scores, valid = (t.cpu().numpy() for t in (
@@ -581,7 +582,7 @@ def score_and_select(cfg: ALConfig, model: Detector, dataset, pool: ALPoolState,
         pos = {int(i): p for p, i in enumerate(local)}
         scores = np.zeros(len(local))
         for batch in pool_loader(local):
-            sc = trainer.unlabeled_scores(torch.from_numpy(batch.images).to(device))
+            sc = trainer.unlabeled_scores(images_tensor(batch.images, device))
             for i, idx in enumerate(batch.image_idx):
                 scores[pos[int(idx)]] = sc[i]
         return subset[vaal_select(merge(scores), budget)]

@@ -17,13 +17,16 @@ import itertools
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
 class Batch:
     """One padded batch; every array is dense and fixed-shape.
 
-    images:    (B, H, W, 3) float32, raw 0..255 pixels.
+    images:    (B, H, W, 3) float32, raw 0..255 pixels: a NumPy array, or
+               the CUDA canvas of the loader's device route (read it with
+               ``images_tensor``).
     valid_hw:  (B, 2) int32, the resized (pre-padding) height/width.
     scale:     (B,) float32, resized / original scale factor.
     boxes:     (B, K, 4) float32 xyxy in RESIZED coordinates.
@@ -43,6 +46,14 @@ class Batch:
     @property
     def batch_size(self) -> int:
         return self.images.shape[0]
+
+
+def images_tensor(images, device) -> torch.Tensor:
+    """``Batch.images`` as a float32 tensor on ``device``: a NumPy array, or
+    the loader's device-route canvas (already there, so not copied)."""
+    if isinstance(images, torch.Tensor):
+        return images.to(device, torch.float32)
+    return torch.from_numpy(np.asarray(images, np.float32)).to(device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from cald_tpu_torch.data.batching import images_tensor
 from cald_tpu_torch.engine.coco_eval import coco_evaluate_detections
 from cald_tpu_torch.engine.voc_eval import voc_evaluate_detections
 from cald_tpu_torch.parallel import all_gather_objects, process_count
@@ -21,7 +22,7 @@ def run_inference(model, loader, *, device, score_thresh: float = 0.0) -> list[d
     results: dict[int, dict] = {}
     with torch.inference_mode():
         for batch in loader:
-            dets = model.detect(torch.from_numpy(batch.images).to(device),
+            dets = model.detect(images_tensor(batch.images, device),
                                 torch.from_numpy(batch.valid_hw).to(device))
             dets = dets.rescale(torch.from_numpy(batch.scale).to(device))
             boxes, scores, labels, valid = (t.cpu().numpy() for t in (

@@ -19,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from cald_tpu_torch.data.batching import images_tensor
 from cald_tpu_torch.engine.logging import MetricLogger
 from cald_tpu_torch.models.matcher import Draw
 from cald_tpu_torch.parallel import process_mean, reduce_gradients_
@@ -64,8 +65,9 @@ def train_one_epoch(step_fn: Callable, loader, draw: Draw, *, device, epoch: int
     header = f"Cycle: [{cycle}] Epoch: [{epoch}]"
     metrics: dict = {}
     for i, batch in enumerate(logger.log_every(loader, print_freq, header)):
-        metrics = step_fn(*(torch.from_numpy(a).to(device) for a in (
-            batch.images, batch.valid_hw, batch.boxes, batch.labels, batch.box_valid)), draw)
+        metrics = step_fn(images_tensor(batch.images, device), *(
+            torch.from_numpy(a).to(device) for a in (
+                batch.valid_hw, batch.boxes, batch.labels, batch.box_valid)), draw)
         if i % print_freq == 0:
             host = {k: float(v) for k, v in metrics.items()}
             if not math.isfinite(host["loss"]):

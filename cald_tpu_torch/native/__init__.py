@@ -7,12 +7,24 @@ bilinearly and pastes it into a float32 canvas in one C++ pass. The ctypes
 calls release the GIL, so the ``BatchLoader``'s thread pool decodes in
 parallel.
 
-Nothing is built at import or at first use: ``build()`` (or ``python -m
-cald_tpu_torch.native``) compiles the source with ``g++`` against libjpeg
-into ``cald_tpu_torch/build/``, keyed by the source's hash, and raises with
-the compiler's message when that fails. ``available()`` is True once the
-library exists; as in the JAX package, the loader's fused fast path and the
-native decode are on only then, and Pillow decodes otherwise.
+Two routes, chosen by the device:
+
+- **CPU** (``device`` None or a CPU device): the libjpeg library. Nothing
+  is built at import or at first use: ``build()`` (or ``python -m
+  cald_tpu_torch.native``) compiles the source with ``g++`` against libjpeg
+  into ``cald_tpu_torch/build/``, keyed by the source's hash, and raises
+  with the compiler's message when that fails. ``available()`` is True once
+  the library exists; as in the JAX package, the loader's fused fast path
+  and the native decode are on only then, and Pillow decodes otherwise.
+- **CUDA**: nvJPEG and a hand-written resize kernel (``native/nvjpeg.py``,
+  ``csrc/jpeg_decode.cu``), built with ``nvcc`` at first use. It serves
+  ``image_size``, ``decode`` (to host uint8, for the training loader's host
+  transform) and the batched ``decode_resize_batch``, and never falls back:
+  a failed build or launch raises.
+
+``rejected`` counts the files the CUDA route's ``decode`` rejected, each of
+which the loader then hands to Pillow (as the JAX package hands it a file
+libjpeg refuses), so that a run can show that none was.
 """
 
 from __future__ import annotations
@@ -23,15 +35,33 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
+import torch
+
+from cald_tpu_torch.native import nvjpeg
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "dataloader.cc"
 BUILD_DIR = _PKG / "build"
 
 _lib = None
+rejected = 0
+_rejected_lock = threading.Lock()
+
+
+def on_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def cuda_device(device) -> torch.device:
+    """``device`` with its index (``cuda`` alone is the current device)."""
+    device = torch.device(device)
+    return device if device.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
 
 
 @functools.cache
@@ -91,8 +121,12 @@ def available() -> bool:
     return _load() is not None
 
 
-def image_size(path: str) -> tuple[int, int]:
-    """(width, height) from the JPEG header only."""
+def image_size(path: str, device=None) -> tuple[int, int]:
+    """(width, height) from the JPEG header only (on a CUDA ``device``,
+    nvJPEG's)."""
+    if on_cuda(device):
+        w, h, _ = nvjpeg.nvjpeg.info(Path(path).read_bytes(), path)
+        return w, h
     lib = _load()
     w = ctypes.c_int()
     h = ctypes.c_int()
@@ -122,8 +156,18 @@ def decode_resize_into(path: str, canvas: np.ndarray, scale: float) -> tuple[int
     return oh.value, ow.value
 
 
-def decode(path: str) -> np.ndarray:
-    """Full decode to (H, W, 3) uint8 RGB."""
+def decode(path: str, device=None) -> np.ndarray:
+    """Full decode to (H, W, 3) uint8 RGB on the host. On a CUDA ``device``
+    nvJPEG decodes on the card; a file it rejects is counted in
+    ``rejected`` and raises ``IOError``."""
+    if on_cuda(device):
+        global rejected
+        try:
+            return nvjpeg.decode_cuda(path, cuda_device(device))
+        except nvjpeg.JpegRejected:
+            with _rejected_lock:
+                rejected += 1
+            raise
     lib = _load()
     w, h = image_size(path)
     out = np.empty((h, w, 3), np.uint8)
@@ -132,3 +176,27 @@ def decode(path: str) -> np.ndarray:
     if rc != 0:
         raise IOError(f"cald_decode failed ({rc}) for {path}")
     return out
+
+
+def decode_resize_batch(paths: Sequence[str], scales: Sequence[float],
+                        canvas_hw: tuple[int, int], device) -> tuple[torch.Tensor, np.ndarray]:
+    """The batched ``decode_resize_into``: every file decoded, resized by its
+    scale and pasted into the top-left of its slot of a new zero-padded (B,
+    H, W, 3) float32 canvas on ``device``. Returns (canvas, valid_hw (B, 2)
+    int32), the resized sizes being ``cald_decode_resize``'s.
+
+    On a CUDA device nvJPEG decodes and one kernel launch resizes the batch,
+    synchronised before the return. On the CPU the libjpeg route decodes
+    (``build()`` first) and the kernel's plain version resizes: the tests'
+    route, equal to ``decode_resize_into`` bit for bit. Raises ``IOError``
+    for a file the route rejects or an image the canvas does not hold."""
+    if on_cuda(device):
+        return nvjpeg.decode_resize_batch_cuda(paths, scales, canvas_hw, cuda_device(device))
+    if not available():
+        raise RuntimeError("the CPU route decodes with the libjpeg library: build() it first")
+    images = [decode(p) for p in paths]
+    meta, _ = nvjpeg.batch_meta([im.shape for im in images], scales, canvas_hw, paths)
+    pixels = torch.from_numpy(np.concatenate([im.reshape(-1) for im in images]))
+    canvas = torch.empty((len(paths), *canvas_hw, 3), dtype=torch.float32, device=device)
+    nvjpeg.resize_into_canvas(pixels, torch.from_numpy(meta), canvas)
+    return canvas, meta[:, 4:6].astype(np.int32)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from cald_tpu_torch.augment.suite import Draw, build_aug_batch, generator_draw
+from cald_tpu_torch.data.batching import images_tensor
 from cald_tpu_torch.models.detections import Detections
 from cald_tpu_torch.ops.consistency import cald_consistency, class_correlation
 
@@ -175,7 +176,7 @@ def score_pool(score_fn: Callable, loader: Iterable, pool_indices: Sequence[int]
     seen = np.zeros((n,), bool)
     draw = generator_draw(generator)
     for batch in loader:
-        images = torch.from_numpy(np.asarray(batch.images, np.float32)).to(generator.device)
+        images = images_tensor(batch.images, generator.device)
         valid_hw = torch.from_numpy(np.asarray(batch.valid_hw)).to(generator.device)
         c, corr = score_fn(images, valid_hw, draw)
         c = c.double().cpu().numpy()

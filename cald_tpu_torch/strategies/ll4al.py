@@ -23,6 +23,7 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from cald_tpu_torch.data.batching import images_tensor
 from cald_tpu_torch.models.lossnet import loss_pred_loss
 from cald_tpu_torch.models.matcher import Draw
 from cald_tpu_torch.parallel import gather_cat, process_mean, reduce_gradients_
@@ -81,7 +82,7 @@ def ll_scores(score_fn: Callable, loader: Iterable, pool_indices: Sequence[int],
     pos = {int(idx): i for i, idx in enumerate(pool_indices)}
     out = np.zeros((len(pool_indices),))
     for batch in loader:
-        p = score_fn(torch.from_numpy(np.asarray(batch.images, np.float32)).to(device),
+        p = score_fn(images_tensor(batch.images, device),
                      torch.from_numpy(np.asarray(batch.valid_hw)).to(device))
         p = p.double().cpu().numpy()
         for i, idx in enumerate(batch.image_idx):

@@ -18,6 +18,7 @@ import torch
 
 from cald_tpu_torch.augment.photometric import gaussian_noise
 from cald_tpu_torch.augment.suite import Draw, generator_draw
+from cald_tpu_torch.data.batching import images_tensor
 from cald_tpu_torch.ops.boxes import pairwise_iou_nocheck
 
 NOISE_STDS = (8.0, 16.0, 24.0, 32.0, 40.0, 48.0)
@@ -85,7 +86,7 @@ def lsc_scores(score_fn: Callable, loader: Iterable, pool_indices: Sequence[int]
     out = np.zeros((len(pool_indices),))
     draw = generator_draw(generator)
     for batch in loader:
-        images = torch.from_numpy(np.asarray(batch.images, np.float32)).to(generator.device)
+        images = images_tensor(batch.images, generator.device)
         valid_hw = torch.from_numpy(np.asarray(batch.valid_hw)).to(generator.device)
         sc = score_fn(images, valid_hw, draw).double().cpu().numpy()
         for i, idx in enumerate(batch.image_idx):

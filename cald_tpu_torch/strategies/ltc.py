@@ -14,6 +14,8 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from cald_tpu_torch.data.batching import images_tensor
+
 
 def _legacy_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise legacy IoU of box pairs (..., 4): +1 on the intersection's
@@ -52,7 +54,7 @@ def run_ltc(score_fn: Callable, loader: Iterable, pool_indices: Sequence[int],
     pos = {int(idx): i for i, idx in enumerate(pool_indices)}
     out = np.full((len(pool_indices),), np.inf)
     for batch in loader:
-        images = torch.from_numpy(np.asarray(batch.images, np.float32)).to(device)
+        images = images_tensor(batch.images, device)
         valid_hw = torch.from_numpy(np.asarray(batch.valid_hw)).to(device)
         u = score_fn(images, valid_hw).double().cpu().numpy()
         for i, idx in enumerate(batch.image_idx):

@@ -65,7 +65,7 @@ class VAALTrainer:
     """
 
     def __init__(self, optimizers: Callable, *, z_dim: int = 256, base_width: int = 128,
-                 image_size: int = VAAL_IMAGE_SIZE, seed: int = 0, device="cpu"):
+                 image_size: int = VAAL_IMAGE_SIZE, seed: int = 0, device="cuda"):
         self.vae = VAAL_VAE(z_dim=z_dim, base_width=base_width, start_hw=image_size // 32)
         self.disc = VAALDiscriminator(z_dim=z_dim)
         lecun_init_(self.vae, seed)

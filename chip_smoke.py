@@ -7,8 +7,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. card: ``nvidia-smi`` name and power limit, torch version, device name;
      exits non-zero at once when CUDA is unavailable (there is no CPU path);
   2. build: compiles the Hopper kernels from ``cald_tpu_torch/csrc``, one
-     ``nvcc`` per source, started together: ``roi_align.cu`` (K1-K4) and
-     ``bottleneck.cu`` (K5, K6);
+     ``nvcc`` per source, started together: ``roi_align.cu`` (K1-K4),
+     ``bottleneck.cu`` (K5, K6) and ``jpeg_decode.cu`` (nvJPEG and the resize
+     kernel K7, linked with ``-lnvjpeg``);
   3. kernel: K1 against its plain PyTorch version at the scoring path's
      shapes (B=8, N=1000, P2..P5 of a 640x1024 canvas, C=256), f32 with TF32
      off (atol 1e-4) and bf16 against the f32 plain version (atol 5e-2);
@@ -145,8 +146,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      against their plain versions on both COCO canvases, at phases 3 and
      6's limits, with their times and bounds; (c) ``cli.train``'s ``main``
      on the same tree: one epoch with ``--output-dir``, then ``--resume``
-     for a second. The native JPEG decoder is not built here: the card has
-     no libjpeg headers or library.
+     for a second. The CPU route of the native JPEG decoder is not built
+     here (the card has no libjpeg); phase 19 runs its device route.
  16. data parallelism, the shrink slice, CIFAR: (a) ``al_loop`` on two
      ranks, subprocesses of ``tests/torch_dp_worker.py`` sharing the card
      over gloo (NCCL refuses two ranks on one device), at phase 11's data
@@ -201,6 +202,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (``al_curves_phase``); then K1, K2 and K3 held against their plain
      versions at each shape these runs gave them that phase 17 did not
      (``selection_gate_holds``).
+ 19. JPEG decoding on the card (``native.decode_resize_batch``'s device
+     route), on JPEGs that Pillow writes at quality 90 with a photograph's
+     statistics: (a) nvJPEG against Pillow on 8 VOC-size (375x500) and 8
+     COCO-size (480x640) images in 4:2:0 and in 4:4:4 and one grayscale:
+     mean |diff| < 2.0 on every image, the largest difference printed; (b)
+     the resize kernel K7 against its plain version on the same device
+     pixels at the scoring loaders' shapes (B=8 375x500 into 640x1024, B=8
+     480x640 into 832x1344): bit for bit, its time, the plain version's and
+     the bound; (c) a ``BatchLoader`` eval batch of each set on the card
+     against the Pillow route: valid_hw, scale and boxes equal, images
+     within mean |diff| < 2.0; (e) the host milliseconds of one such batch
+     through each route, in turns; (d) ``al_loop`` of the tiny model (CALD,
+     2 cycles of 1 epoch) on a ``make_voc`` tree of 40 375x500 JPEGs: one
+     K7 launch per evaluation and scoring batch, nvJPEG decoding every
+     image of every batch (the training batches' to host arrays),
+     ``native.rejected == 0`` (``jpeg_decode_phase``, ``jpeg_al_phase``).
+     Phases 12(d), 17 and 18 read JPEG trees too, through the same route.
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
 K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
@@ -217,13 +235,16 @@ window score call, ``launches_selection_gate``, and their holds at
 phase 17's shapes, ``selection_gate``, from phase 17; K1's per evaluation
 detect and CALD score call and K2/K3's per step of the AL-curve runs,
 ``launches_al_curves``, and their holds at phase 18's new shapes,
-``al_curves``, from phase 18),
+``al_curves``, from phase 18; K7's per batch of phase 19(d)'s loop,
+its COCO-size hold, the nvJPEG checks and the loader's batch times from
+phase 19),
 its time (K1: the median of three turns, each the kernel then its plain
 version; K5 and K6: on weights restaged once, ``ms_with_restaging``
 through the wrappers) and its plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak of their type,
 from this run's inputs) and ``library_ms`` null: no single PyTorch call
-computes RoIAlign or a bottleneck.
+computes RoIAlign, a bottleneck or K7's resize into a canvas of a batch
+of images of other sizes.
 
 The line before the last is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. JAX is not imported.
@@ -3543,6 +3564,295 @@ def al_curves_phase(device, kernels: dict, card: str, workdir: str) -> dict:
     return {**totals, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: JPEG decoding on the card (nvJPEG + the resize kernel)
+
+# (image (h, w), the resize rule's (min, max), the canvas) at the scoring
+# loaders' sizes: a VOC image and a COCO image
+JPEG_SETS = {"voc": ((375, 500), (600, 1000), (640, 1024)),
+             "coco": ((480, 640), (800, 1333), (832, 1344))}
+JPEG_BATCH = 8
+JPEG_MEAN_BOUND = 2.0          # mean |diff| against Pillow (tests/test_torch_native.py)
+JPEG_AL_IMAGES = 40            # phase 19(d)'s make_voc tree, trainval = test
+JPEG_REPS = 3
+
+
+def _scene(h: int, w: int, seed: int, gray: bool = False) -> np.ndarray:
+    """A Pillow-written test picture with the statistics of a photograph
+    more than of noise: smooth gradients, a few flat shapes, mild noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    img = np.stack([120 + 80 * np.sin(xx / (17 + 5 * c) + yy / (23 + 3 * c) + c)
+                    for c in range(3)], -1)
+    for _ in range(6):
+        y0, x0 = int(rng.integers(0, h - 20)), int(rng.integers(0, w - 20))
+        img[y0:y0 + int(rng.integers(10, h // 3)), x0:x0 + int(rng.integers(10, w // 3))] = \
+            rng.uniform(0, 255, 3)
+    img = np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+    return img.mean(-1).astype(np.uint8) if gray else img
+
+
+def _write_jpegs(workdir: str) -> dict:
+    """Per set and chroma subsampling (4:2:0 and 4:4:4), JPEG_BATCH JPEGs
+    written by Pillow (quality 90); and one grayscale VOC-size image."""
+    from PIL import Image
+
+    os.makedirs(workdir, exist_ok=True)
+    files: dict = {}
+    for name, ((h, w), _, _) in JPEG_SETS.items():
+        for sub, tag in ((2, "420"), (0, "444")):
+            for i in range(JPEG_BATCH):
+                path = os.path.join(workdir, f"{name}_{tag}_{i}.jpg")
+                Image.fromarray(_scene(h, w, seed=100 * i + len(files))).save(
+                    path, quality=90, subsampling=sub)
+                files.setdefault((name, tag), []).append(path)
+    gray = os.path.join(workdir, "voc_gray.jpg")
+    Image.fromarray(_scene(*JPEG_SETS["voc"][0], seed=7, gray=True), "L").save(gray, quality=90)
+    files[("voc", "gray")] = [gray]
+    return files
+
+
+class _Records:
+    """A dataset of ImageRecords for the loader: 1-4 boxes an image."""
+
+    def __init__(self, paths: list, hw: tuple, seed: int):
+        from cald_tpu_torch.data.records import ImageRecord
+
+        rng = np.random.default_rng(seed)
+        self.records = []
+        for i, p in enumerate(paths):
+            n = int(rng.integers(1, 5))
+            xy = rng.uniform(0, 0.6, (n, 2)) * (hw[1], hw[0])
+            wh = rng.uniform(20, 120, (n, 2))
+            self.records.append(ImageRecord(
+                image_id=str(i), image_path=p, width=hw[1], height=hw[0],
+                boxes=np.concatenate([xy, xy + wh], 1).astype(np.float32),
+                labels=rng.integers(1, 21, n).astype(np.int32), difficult=np.zeros(n, bool)))
+
+    def __len__(self):
+        return len(self.records)
+
+    def record(self, i: int):
+        return self.records[i]
+
+
+def _device_pixels(paths: list, scales: list, canvas_hw: tuple, device):
+    """The batch's files decoded by nvJPEG into one device buffer, as
+    ``native.decode_resize_batch`` lays them out; returns (pixels, meta)."""
+    import torch
+
+    from cald_tpu_torch.native import nvjpeg as nvj
+
+    datas = [open(p, "rb").read() for p in paths]
+    infos = [nvj.nvjpeg.info(d, p) for d, p in zip(datas, paths)]
+    meta, total = nvj.batch_meta([(h, w, c) for w, h, c in infos], scales, canvas_hw, paths,
+                                 align=256)
+    pixels = torch.empty(total, dtype=torch.uint8, device=device)
+    for d, p, (w, _, c), o in zip(datas, paths, infos, meta[:, 0].tolist()):
+        nvj.nvjpeg.decode(d, pixels[o:], w, c, p)
+    torch.cuda.synchronize()
+    return pixels, torch.from_numpy(meta)
+
+
+def jpeg_decode_phase(device, card: str, workdir: str) -> dict:
+    """Phase 19(a)-(c) and (e): nvJPEG against Pillow on every test image
+    (mean |diff| < 2.0, the largest difference printed); the resize kernel
+    against its plain version on the same device pixels at the scoring
+    loaders' shapes (bit for bit), with its time, the plain version's and
+    its bound; a ``BatchLoader`` eval pass on the card against the Pillow
+    route (valid_hw, scale and boxes equal, images within the bound); and
+    the host milliseconds of one eval batch through each route."""
+    import torch
+    from PIL import Image
+
+    from cald_tpu_torch import native
+    from cald_tpu_torch.data import loader as tloader
+    from cald_tpu_torch.data.batching import default_canvases, resize_scale
+    from cald_tpu_torch.native import nvjpeg as nvj
+
+    files = _write_jpegs(workdir)
+    # (a) every image decoded by nvJPEG against Pillow
+    decode_rows = {}
+    for (name, tag), paths in files.items():
+        means, maxes = [], []
+        for p in paths:
+            with Image.open(p) as im:
+                want = np.asarray(im.convert("RGB"), np.int16)
+            got = native.decode(p, device)
+            if got.shape != want.shape or native.image_size(p, device) != want.shape[1::-1]:
+                raise AssertionError(f"jpeg: nvJPEG's size of {p} is {got.shape}, Pillow's "
+                                     f"{want.shape}")
+            diff = np.abs(got.astype(np.int16) - want)
+            means.append(float(diff.mean()))
+            maxes.append(int(diff.max()))
+        decode_rows[f"{name}_{tag}"] = {"images": len(paths), "worst_mean_abs_diff": max(means),
+                                        "max_abs_diff": max(maxes)}
+        print(f"jpeg (a): nvJPEG against Pillow, {name} {tag}, {len(paths)} image(s) of "
+              f"{want.shape[0]}x{want.shape[1]}: mean |diff| <= {max(means):.4f} (bound "
+              f"{JPEG_MEAN_BOUND}), max |diff| {max(maxes)}")
+        if max(means) >= JPEG_MEAN_BOUND:
+            raise AssertionError(f"jpeg: nvJPEG is {max(means)} from Pillow on {name} {tag}")
+
+    # (b) the kernel against its plain version on the same device pixels
+    kernel = nvj.resize_into_canvas
+    holds = {}
+    for name, ((h, w), (mn, mx), canvas_hw) in JPEG_SETS.items():
+        paths = files[(name, "420")]
+        scales = [resize_scale(h, w, mn, mx)] * len(paths)
+        pixels, meta = _device_pixels(paths, scales, canvas_hw, device)
+        got = torch.empty((len(paths), *canvas_hw, 3), device=device)
+        kernel(pixels, meta, got)
+        want = nvj.resize_into_canvas_plain(pixels, meta, torch.empty_like(got))
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"jpeg: the resize kernel differs from its plain version on "
+                                 f"{name}: max |diff| {err}")
+        meta_dev = meta.to(device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launch = lambda: kernel._launch(pixels.data_ptr(), meta_dev.data_ptr(), got.data_ptr(),
+                                        len(paths), *canvas_hw, device.index, stream)
+        wrapper = lambda: kernel(pixels, meta, got)
+        plain = lambda: nvj.resize_into_canvas_plain(pixels, meta, want)
+        turns, wrap_turns, plain_turns = [], [], []
+        for _ in range(JPEG_REPS):
+            turns.append(cuda_ms(launch, 50))
+            wrap_turns.append(cuda_ms(wrapper, 50))
+            plain_turns.append(cuda_ms(plain, 3))
+        m = meta.numpy()
+        in_bytes = int((m[:, 1] * m[:, 2] * m[:, 3]).sum()) + meta.numel() * 8
+        # per resized pixel: 2 axis positions (add, mul, sub, 2 clamps, sub),
+        # 4 weights (4 sub, 4 mul) and 3 channels of 4 mul + 3 add
+        n_ops = float((m[:, 4] * m[:, 5]).sum()) * (12 + 8 + 21)
+        holds[name] = {"batch": len(paths), "image_hw": [h, w], "canvas": list(canvas_hw),
+                       "out_hw": m[0, 4:6].tolist(), "max_abs_err": err,
+                       "ms": float(np.median(turns)), "ms_turns": turns,
+                       "wrapper_ms": float(np.median(wrap_turns)),
+                       "plain_ms": float(np.median(plain_turns)), "plain_ms_turns": plain_turns,
+                       "library_ms": None,
+                       **bound(in_bytes + got.numel() * 4, n_ops, F32_OPS_S)}
+        hb = holds[name]
+        print(f"jpeg (b): resize kernel, {name}: B={len(paths)} {h}x{w} -> {hb['out_hw']} in "
+              f"{canvas_hw[0]}x{canvas_hw[1]}: bit for bit its plain version; kernel "
+              f"{hb['ms']:.4f} ms (through the wrapper {hb['wrapper_ms']:.4f}), plain "
+              f"{hb['plain_ms']:.4f} ms, bound {hb['bound_ms']:.4f} ms ({hb['bound_by']}) on "
+              f"{card}")
+        del pixels, got, want
+
+    # (c) an eval pass through the loader on the card against the Pillow route;
+    # (e) the host milliseconds of one batch through each route
+    loads = {}
+    for name, ((h, w), (mn, mx), _) in JPEG_SETS.items():
+        ds = _Records(files[(name, "420")], (h, w), seed=3)
+        kw = dict(canvases=default_canvases(mn, mx), min_size=mn, max_size=mx, max_boxes=8,
+                  num_workers=2)
+        batches = [list(range(len(ds)))]
+        dev_loader = tloader.BatchLoader(ds, batches, device=device, **kw)
+        pil_loader = tloader.BatchLoader(ds, batches, **kw)
+        avail = native.available
+        native.available = lambda: False        # the Pillow route, as on a card without libjpeg
+        try:
+            (pb,) = list(pil_loader)
+            (db,) = list(dev_loader)
+            routes = {"device": [], "pillow": []}
+            for order in (("device", "pillow"), ("pillow", "device"))[:JPEG_REPS]:
+                for r in order:
+                    ld = dev_loader if r == "device" else pil_loader
+                    t0 = time.perf_counter()
+                    ld._build(0, batches[0])
+                    routes[r].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            native.available = avail
+        if not isinstance(db.images, torch.Tensor) or db.images.device != device:
+            raise AssertionError(f"jpeg: the device route gave {type(db.images)}")
+        for f in ("valid_hw", "scale", "boxes", "labels", "box_valid", "image_idx"):
+            if not np.array_equal(getattr(db, f), getattr(pb, f)):
+                raise AssertionError(f"jpeg: the loader's {f} differs between the routes")
+        means = []
+        imgs = db.images.cpu().numpy()
+        for i, (vh, vw) in enumerate(db.valid_hw):
+            means.append(float(np.abs(imgs[i, :vh, :vw] - pb.images[i, :vh, :vw]).mean()))
+            if imgs[i, vh:].any() or imgs[i, :, vw:].any():
+                raise AssertionError("jpeg: the device canvas is not zero beyond the image")
+        loads[name] = {"batch": len(ds), "canvas": list(db.images.shape[1:3]),
+                       "worst_mean_abs_diff": max(means),
+                       "device_route_ms": float(np.median(routes["device"])),
+                       "pillow_route_ms": float(np.median(routes["pillow"])),
+                       "device_route_ms_all": routes["device"],
+                       "pillow_route_ms_all": routes["pillow"]}
+        print(f"jpeg (c): loader eval batch, {name}: B={len(ds)} on {db.images.shape[1]}x"
+              f"{db.images.shape[2]}: valid_hw/scale/boxes equal, images mean |diff| <= "
+              f"{max(means):.4f} against the Pillow route")
+        print(f"jpeg (e): host ms to decode one {name} eval batch (B={len(ds)} {h}x{w}): "
+              f"device route {loads[name]['device_route_ms']:.2f}, Pillow route "
+              f"{loads[name]['pillow_route_ms']:.2f} (medians; all "
+              f"{routes['device']} / {routes['pillow']}) on {card}")
+        if max(means) >= JPEG_MEAN_BOUND:
+            raise AssertionError(f"jpeg: the device route is {max(means)} from Pillow's")
+    return {"decode": decode_rows, "holds": holds, "loader": loads}
+
+
+def jpeg_al_phase(device, card: str, workdir: str) -> dict:
+    """Phase 19(d): one ``al_loop`` of the tiny model (CALD, 2 cycles of 1
+    epoch, so cycle 0 evaluates and scores) on a ``make_voc`` JPEG tree of
+    375x500 images, on the card: the resize kernel launched once per batch
+    of the evaluation and scoring loaders (every batch built without a
+    transform), nvJPEG decoding every image of every batch (the training
+    loaders' too, to host arrays for the flip), ``native.rejected == 0``."""
+    from cald_tpu_torch import native
+    from cald_tpu_torch.cli import driver
+    from cald_tpu_torch.cli.config import ALConfig
+    from cald_tpu_torch.data import loader as tloader
+    from cald_tpu_torch.data.synthetic import make_voc
+    from cald_tpu_torch.data.voc import get_voc2007
+    from cald_tpu_torch.native import nvjpeg as nvj
+
+    h, w = JPEG_SETS["voc"][0]
+    root = make_voc(os.path.join(workdir, "voc_jpg"), num_images=JPEG_AL_IMAGES,
+                    size_range=((h, h + 1), (w, w + 1)), seed=SEED, max_objects=3)
+    datasets = (get_voc2007(root, "trainval"), get_voc2007(root, "test"))
+    cfg = ALConfig(data_path=root, tiny=True, strategy="cald", augs="FCDR", cycles=2,
+                   epochs=1, batch_size=TRAIN_BATCH, init_num=8, budget_num=8,
+                   score_batch_size=BATCH, workers=4, print_freq=100,
+                   device=device.type).resolve()
+    built = {"plain": [0, 0], "transform": [0, 0]}       # batches, images
+    orig = tloader.BatchLoader._build
+
+    def counting(self, n, idxs):
+        kind = built["plain" if self.transform is None else "transform"]
+        kind[0] += 1
+        kind[1] += len(idxs)
+        return orig(self, n, idxs)
+
+    tloader.BatchLoader._build = counting
+    nvj.resize_into_canvas.launches = 0
+    nvj.nvjpeg.decoded = 0
+    native.rejected = 0
+    try:
+        t0 = time.perf_counter()
+        history = driver.al_loop(cfg, datasets=datasets)
+        wall = time.perf_counter() - t0
+    finally:
+        tloader.BatchLoader._build = orig
+    launches, decoded, rejected = nvj.resize_into_canvas.launches, nvj.nvjpeg.decoded, \
+        native.rejected
+    print(f"jpeg (d): al_loop on {JPEG_AL_IMAGES} {h}x{w} JPEGs, tiny, CALD, 2 cycles: "
+          f"{built['plain'][0]} evaluation/scoring batches ({built['plain'][1]} images) and "
+          f"{built['transform'][0]} training batches ({built['transform'][1]} images) built; "
+          f"resize launches {launches}, nvJPEG decodes {decoded}, rejected {rejected}; "
+          + "; ".join(f"cycle {c['cycle']}: labeled {c['labeled']}, mAP {c['eval']['mAP']:.4f}"
+                      for c in history) + f"; {wall:.2f} s on {card}")
+    if not (launches == built["plain"][0] > 0 and rejected == 0
+            and decoded == built["plain"][1] + built["transform"][1]):
+        raise AssertionError("jpeg: the eval and score batches did not all go through nvJPEG "
+                             "and one resize launch each")
+    if not all(math.isfinite(c["eval"]["mAP"]) for c in history) or not (
+            history[0]["labeled"] > cfg.init_num):
+        raise AssertionError(f"jpeg: the JPEG al_loop went wrong: {history}")
+    return {"launches": launches, "eval_score_batches": built["plain"][0],
+            "decoded": decoded, "rejected": rejected, "wall_s": wall}
+
+
 def nccl_check() -> int:
     """``chip_smoke.py --nccl``, outside the smoke run: phase 16's helpers
     on two ranks over NCCL, one card a rank (``rank % device_count``). With
@@ -3598,6 +3908,7 @@ def main() -> int:
     if sys.argv[1:] == ["--nccl"]:
         return nccl_check()
     from cald_tpu_torch.augment.suite import generator_draw
+    from cald_tpu_torch.native.nvjpeg import nvjpeg, resize_into_canvas
     from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
     from cald_tpu_torch.ops.roi_align_cuda import (
         roi_align_bwd_kernel, roi_align_group_fwd_kernel, roi_align_kernel,
@@ -3622,13 +3933,15 @@ def main() -> int:
                    "bottleneck_block": fused_block_kernel, "bottleneck_stage": fused_stage_kernel}
     # one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         built = list(ex.map(lambda k: (k.load(), time.perf_counter() - t0),
-                              (roi_align_kernel, fused_block_kernel)))
+                              (roi_align_kernel, fused_block_kernel, resize_into_canvas)))
     for k in all_kernels.values():
         k.load()
+    nvjpeg.load()
     print(f"build: roi_align kernels (K1, K2, K3, K4) ready in {built[0][1]:.2f} s, bottleneck "
-          f"kernels (K5, K6) in {built[1][1]:.2f} s")
+          f"kernels (K5, K6) in {built[1][1]:.2f} s, nvJPEG + resize kernel (K7) in "
+          f"{built[2][1]:.2f} s")
 
     kernel = kernel_phase(device)
 
@@ -3722,6 +4035,12 @@ def main() -> int:
             curves = al_curves_phase(device, all_kernels, card, os.path.join(workdir, "p18"))
         curve_holds = selection_gate_holds(device, curve_shapes - gate_shapes, card)
         print(f"phase 18: {time.perf_counter() - t18:.2f} s on {card}")
+
+        t19 = time.perf_counter()
+        p19 = os.path.join(workdir, "p19")
+        jpeg = jpeg_decode_phase(device, card, p19)
+        jpeg_al = jpeg_al_phase(device, card, p19)
+        print(f"phase 19: {time.perf_counter() - t19:.2f} s on {card}")
     for entry in (kernel, *train_kernels):
         entry["al_curves"] = curve_holds[entry["name"]]
     kernel["launches_al_curves"] = {
@@ -3770,8 +4089,19 @@ def main() -> int:
         entry["coco"] = {key: {k: v[name][k] for k in HOLD_KEYS}
                          for key, v in coco_kernels.items()}
 
+    voc = jpeg["holds"]["voc"]
+    resize_kernel = {
+        "name": "resize_into_canvas", "route": "cuda",
+        "source": "cald_tpu_torch/csrc/jpeg_decode.cu", "replaces": "native/dataloader.cc:80",
+        "launches": jpeg_al["launches"],
+        **{k: voc[k] for k in ("max_abs_err", "ms", "ms_turns", "wrapper_ms", "plain_ms",
+                               "plain_ms_turns", "library_ms", "bound_ms", "bound_by",
+                               "bound_bytes", "bound_ops")},
+        "shape": {k: voc[k] for k in ("batch", "image_hw", "canvas", "out_hw")},
+        "coco": jpeg["holds"]["coco"], "launches_al_loop": jpeg_al,
+        "nvjpeg_against_pillow": jpeg["decode"], "loader_batch": jpeg["loader"]}
     print(json.dumps({"kernels": [kernel, train_kernels[0], train_kernels[1], group_kernel,
-                                  *bneck_kernels]}))
+                                  *bneck_kernels, resize_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,7 +3,7 @@ package or in the port: which seeds' losses go non-finite.
 
     python tests/curve_seeds.py --package jax|torch --recipe hard|imbalanced
         [--seeds 0-7] [--cycles 1] [--init N] [--epochs E] [--procs 4]
-        [--threads 2] [--jax-init]
+        [--threads 2] [--jax-init] [--trace]
 
 The recipes are those of ``experiments/selection_effectiveness_hard.py``
 (``hard``: 400 hard/easy images at 192x256, 50 initial, 14 epochs at batch
@@ -17,12 +17,18 @@ same images at every cycle; ``--cycles 1`` is the first training only.
 
 On the CPU a run is deterministic for a given seed and thread count, so
 the spread over seeds is the recipe's own. Each seed runs in a process of
-its own, ``--procs`` at a time, on ``--threads`` threads. Prints one JSON
+its own, ``--procs`` at a time, on ``--threads`` threads: the port's
+``torch.set_num_threads``, and for both packages the process's CPU
+affinity, ``--threads`` cores of its own when ``procs * threads`` cores
+exist (XLA sizes its CPU thread pool by the affinity, not by
+``OMP_NUM_THREADS``). Prints one JSON
 line a seed (how the run ended, the cycle it reached, the seconds; for the
 port also its SGD steps and their largest and median gradient norm) and a
 summary line. ``--jax-init`` starts the port's every cycle from the JAX
 package's initial weights for the seed (its driver's ``model.init`` with
 ``jax.random.key(seed)``, converted), in place of the port's own draw.
+``--trace`` adds every training step's losses (and, for the port, its
+gradient norm) to the seed's line, to find the first loss that runs away.
 """
 
 from __future__ import annotations
@@ -77,13 +83,33 @@ def run(package: str, name: str, seed: int, args, work: str, extra: dict) -> Non
     gradient norms, also when it stops."""
     root = pool(package, name, work, seed)
     cfg = recipe(name, root, seed, args.cycles, args.init, args.epochs)
+    trace: list = []
     if package == "jax":
         from cald_tpu.cli.config import ALConfig
         from cald_tpu.cli.driver import al_loop
         from cald_tpu.data import get_voc2007
 
+        import cald_tpu.cli.driver as jdriver
+
+        if args.trace:
+            make = jdriver.make_train_step
+
+            def tracing_make(model, *a, **kw):
+                step = make(model, *a, **kw)
+
+                def traced(state, *sa):
+                    state, metrics = step(state, *sa)
+                    trace.append({k: float(v) for k, v in metrics.items()})
+                    return state, metrics
+                return traced
+
+            jdriver.make_train_step = tracing_make
         ds = get_voc2007(root, "trainval")
-        al_loop(ALConfig(**cfg).resolve(), datasets=(ds, ds))
+        try:
+            al_loop(ALConfig(**cfg).resolve(), datasets=(ds, ds))
+        finally:
+            if args.trace:
+                extra["trace"] = trace
         return
     import torch
 
@@ -101,6 +127,22 @@ def run(package: str, name: str, seed: int, args, work: str, extra: dict) -> Non
         return sgd_step(self, *a, **kw)
 
     torch.optim.SGD.step = recording_step
+    if args.trace:
+        import cald_tpu_torch.cli.driver as tdriver
+
+        make = tdriver.make_train_step
+
+        def tracing_make(*a, **kw):
+            step = make(*a, **kw)
+
+            def traced(*sa):
+                metrics = step(*sa)
+                trace.append({**{k: float(v) for k, v in metrics.items()},
+                              "grad_norm": norms[-1]})
+                return metrics
+            return traced
+
+        tdriver.make_train_step = tracing_make
     if args.jax_init:
         import cald_tpu_torch.cli.driver as driver
 
@@ -111,6 +153,8 @@ def run(package: str, name: str, seed: int, args, work: str, extra: dict) -> Non
         al_loop(ALConfig(**cfg, device="cpu").resolve(), datasets=(ds, ds))
     finally:
         finite = [n for n in norms if np.isfinite(n)]
+        if args.trace:
+            extra["trace"] = trace
         extra.update(steps=len(norms), grad_norm_max=max(finite, default=None),
                      grad_norm_median=float(np.median(finite)) if finite else None,
                      grad_norm_first=norms[0] if norms else None,
@@ -148,6 +192,16 @@ def one(package: str, name: str, seed: int, args) -> dict:
     return out
 
 
+def pin(slot: int, threads: int, procs: int):
+    """A ``preexec_fn`` that gives the ``slot``-th process of a round its
+    own ``threads`` cores, or None where there are too few."""
+    cores = sorted(os.sched_getaffinity(0))
+    if procs * threads > len(cores):
+        return None
+    mine = set(cores[slot * threads:(slot + 1) * threads])
+    return lambda: os.sched_setaffinity(0, mine)
+
+
 def seed_list(spec: str) -> list[int]:
     if "-" in spec:
         a, b = spec.split("-")
@@ -167,6 +221,8 @@ def main() -> int:
     p.add_argument("--threads", type=int, default=2)
     p.add_argument("--jax-init", action="store_true",
                    help="the port starts from the JAX package's initial weights")
+    p.add_argument("--trace", action="store_true",
+                   help="every step's losses (and the port's gradient norm) in the line")
     p.add_argument("--one", type=int, default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
 
@@ -187,11 +243,14 @@ def main() -> int:
             argv += [f"--{opt}", str(getattr(args, opt))]
     if args.jax_init:
         argv.append("--jax-init")
+    if args.trace:
+        argv.append("--trace")
     rows, seeds = [], seed_list(args.seeds)
     for i in range(0, len(seeds), args.procs):
         procs = [subprocess.Popen([*argv, "--one", str(s)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.DEVNULL, text=True, env=env, cwd=ROOT)
-                 for s in seeds[i:i + args.procs]]
+                                  stderr=subprocess.DEVNULL, text=True, env=env, cwd=ROOT,
+                                  preexec_fn=pin(j, args.threads, args.procs))
+                 for j, s in enumerate(seeds[i:i + args.procs])]
         for s, proc in zip(seeds[i:i + args.procs], procs):
             text = proc.communicate()[0]
             lines = [ln for ln in text.splitlines() if ln.startswith("{")]

@@ -648,3 +648,134 @@ def test_photometric_card_matches_cpu(card, name):
     torch.testing.assert_close(got[0].cpu(), want[0], atol=atol, rtol=0)
     torch.testing.assert_close(got[1].cpu(), want[1], atol=0, rtol=0)
     torch.testing.assert_close(got[2].cpu(), want[2], atol=0, rtol=0)
+
+
+# The native decoder's device route: nvJPEG and the resize kernel
+# (``native/nvjpeg.py``, ``csrc/jpeg_decode.cu``).
+
+def _pil_jpeg(path, h: int, w: int, seed: int, mode: str = "RGB", subsampling: int = 2,
+              content: str = "photo") -> str:
+    """A JPEG written by Pillow (quality 90). ``photo``: smooth gradients,
+    a few flat shapes and mild noise, a photograph's statistics more than
+    noise's; ``harsh``: channels that wrap around every few pixels, so the
+    chroma has sharp edges everywhere."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    if content == "photo":
+        img = np.stack([120 + 80 * np.sin(xx / (17 + 5 * c) + yy / (23 + 3 * c) + c)
+                        for c in range(3)], -1)
+        for _ in range(6):
+            y0, x0 = int(rng.integers(0, max(1, h - 20))), int(rng.integers(0, max(1, w - 20)))
+            img[y0:y0 + int(rng.integers(2, max(3, h // 3))),
+                x0:x0 + int(rng.integers(2, max(3, w // 3)))] = rng.uniform(0, 255, 3)
+        img = img + rng.normal(0, 6, img.shape)
+    else:
+        base = (yy * 7 + xx * 3) % 256
+        img = np.stack([base, (base * 3) % 256, 255 - base], -1) + rng.integers(-30, 30, (h, w, 3))
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    if mode == "L":
+        img = img.mean(-1).astype(np.uint8)
+    Image.fromarray(img, mode).save(path, quality=90, subsampling=subsampling)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def jpeg_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (nvJPEG and the resize kernel have no CPU mode)")
+    from cald_tpu_torch.native import nvjpeg
+
+    nvjpeg.nvjpeg.load()
+    nvjpeg.resize_into_canvas.load()
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("mode, subsampling, hw, content", [
+    ("RGB", 2, (375, 500), "photo"), ("RGB", 0, (480, 640), "photo"),
+    ("L", 0, (333, 257), "photo"), ("RGB", 2, (171, 313), "photo"),
+    ("RGB", 0, (375, 500), "harsh"), ("L", 0, (64, 96), "harsh")])
+def test_nvjpeg_decode_close_to_pillow(jpeg_card, tmp_path, mode, subsampling, hw, content):
+    """nvJPEG's decode (4:2:0, 4:4:4, grayscale, odd sizes) against
+    Pillow's libjpeg: mean |diff| < 2.0 (tests/test_torch_native.py's
+    bound: the IDCTs differ); the header's size exact. nvJPEG upsamples
+    4:2:0 chroma without libjpeg's triangular ("fancy") filter, so on
+    chroma edges single pixels differ by up to about 100: 4:2:0 is held on
+    photo-like content, where the mean stays below the bound, and content
+    with sharp chroma edges everywhere only without subsampling (a 17x31
+    photo-like image, mostly the edges of its flat shapes, measured 2.06 on
+    an H100)."""
+    from PIL import Image
+
+    from cald_tpu_torch import native
+
+    path = _pil_jpeg(tmp_path / "a.jpg", *hw, seed=1, mode=mode, subsampling=subsampling,
+                     content=content)
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB"), np.uint8)
+    assert native.image_size(path, jpeg_card) == (hw[1], hw[0])
+    got = native.decode(path, jpeg_card)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert float(np.abs(got.astype(np.float64) - want).mean()) < 2.0
+    if mode == "L":
+        assert (got[..., 0] == got[..., 1]).all() and (got[..., 0] == got[..., 2]).all()
+
+
+def test_resize_kernel_equals_plain_bit_for_bit(jpeg_card, tmp_path):
+    """The kernel against its plain version on the same device pixels (a
+    batch of odd sizes, a grayscale image, scales that hit the clamps, a
+    canvas larger than every image): bit for bit, one launch."""
+    from cald_tpu_torch.native import nvjpeg
+
+    shapes = [(375, 500, 3), (1, 1, 3), (37, 91, 1), (120, 7, 3)]
+    scales = [1.6, 7.0, 2.3, 0.5]
+    canvas_hw = (640, 1024)
+    meta, total = nvjpeg.batch_meta(shapes, scales, canvas_hw, ["x"] * 4, align=256)
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.integers(0, 256, total, dtype=np.uint8)).to(jpeg_card)
+    k = nvjpeg.ResizeIntoCanvasKernel()
+    got = k(pixels, torch.from_numpy(meta), torch.full((4, *canvas_hw, 3), -1.0,
+                                                       device=jpeg_card))
+    torch.cuda.synchronize()
+    want = nvjpeg.resize_into_canvas_plain(pixels, torch.from_numpy(meta),
+                                           torch.empty((4, *canvas_hw, 3), device=jpeg_card))
+    assert k.launches == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_device_batch_route_against_pillow_and_rejections(jpeg_card, tmp_path):
+    """``native.decode_resize_batch`` on the card: sizes exact against the
+    C++ rule, pixels within mean |diff| < 2.0 of Pillow's decode through the
+    plain resize, zeros beyond; a corrupt file raises ``IOError`` and, as a
+    single decode, is counted in ``native.rejected``."""
+    from PIL import Image
+
+    from cald_tpu_torch import native
+    from cald_tpu_torch.native import nvjpeg
+
+    paths = [_pil_jpeg(tmp_path / f"{i}.jpg", *hw, seed=i, mode=m)
+             for i, (hw, m) in enumerate([((375, 500), "RGB"), ((500, 375), "RGB"),
+                                          ((300, 400), "L")])]
+    scales = [1.6, 1.28, 2.0]
+    canvas, valid_hw = native.decode_resize_batch(paths, scales, (640, 1024), jpeg_card)
+    assert canvas.is_cuda and canvas.shape == (3, 640, 1024, 3)
+    for i, (p, s) in enumerate(zip(paths, scales)):
+        with Image.open(p) as im:
+            img = np.asarray(im.convert("RGB"), np.uint8)
+        rh, rw = nvjpeg.output_size(*img.shape[:2], s)
+        assert tuple(valid_hw[i]) == (rh, rw)
+        want = nvjpeg.resize_into_canvas_plain(
+            torch.from_numpy(img.reshape(-1).copy()),
+            torch.tensor([[0, *img.shape[:2], 3, rh, rw]]), torch.empty((1, 640, 1024, 3)))[0]
+        got = canvas[i].cpu()
+        assert float((got[:rh, :rw] - want[:rh, :rw]).abs().mean()) < 2.0
+        assert got[rh:].abs().sum() == 0 and got[:, rw:].abs().sum() == 0
+    bad = tmp_path / "bad.jpg"
+    bad.write_bytes(b"\xff\xd8 broken" * 20)
+    with pytest.raises(IOError):
+        native.decode_resize_batch([paths[0], str(bad)], [1.0, 1.0], (640, 1024), jpeg_card)
+    before = native.rejected
+    with pytest.raises(IOError):
+        native.decode(str(bad), jpeg_card)
+    assert native.rejected == before + 1

@@ -256,7 +256,8 @@ def test_dp_vaal_step_matches_jax_global_batch(tmp_path):
     want = (module_state_dict(jax.tree.map(np.asarray, jt.vae_params), transposed=VAE_TRANSPOSED),
             module_state_dict(jax.tree.map(np.asarray, jt.d_params)))
 
-    one = VAALTrainer(lambda v, d: (make_sgd(v, vae_lr), None, make_sgd(d, d_lr), None), **sizes)
+    one = VAALTrainer(lambda v, d: (make_sgd(v, vae_lr), None, make_sgd(d, d_lr), None), **sizes,
+                      device="cpu")
     one.vae.load_state_dict(before[0])
     one.disc.load_state_dict(before[1])
     one.train_step(T(lab), T(unlab), worker.replay(draws))

@@ -123,7 +123,7 @@ def _trainers():
         return (vo, lr_scheduler(vo, multistep_with_warmup(VAE_LR, STEPS_PER_EPOCH)),
                 do, lr_scheduler(do, multistep_with_warmup(D_LR, STEPS_PER_EPOCH)))
 
-    tt = VAALTrainer(optimizers, z_dim=Z, base_width=BASE, image_size=SIZE)
+    tt = VAALTrainer(optimizers, z_dim=Z, base_width=BASE, image_size=SIZE, device="cpu")
     tt.vae.load_state_dict(module_state_dict(jt.vae_params, transposed=VAE_TRANSPOSED),
                            strict=True)
     tt.disc.load_state_dict(module_state_dict(jax.tree.map(np.asarray, jt.d_params)),

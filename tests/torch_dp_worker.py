@@ -130,7 +130,7 @@ def task_vaal(payload, rank, world):
     def optimizers(vae, disc):
         return make_sgd(vae, vae_lr), None, make_sgd(disc, d_lr), None
 
-    trainer = VAALTrainer(optimizers, **payload["sizes"])
+    trainer = VAALTrainer(optimizers, **payload["sizes"], device="cpu")
     trainer.vae.load_state_dict(payload["vae"])
     trainer.disc.load_state_dict(payload["disc"])
     lab, unlab = local_rows(payload["images"], rank, world)
