@@ -78,8 +78,9 @@ class ALConfig:
     # continues with cycle k's selection — bit-identical to an uninterrupted
     # run. Capability the reference lacks (its --skip loses the split, SURVEY §5).
     resume: str = ""
-    # Capture a torch.profiler chrome trace (host + device activity) of the
-    # FIRST cycle into this directory.
+    # Capture a torch.profiler chrome trace of the FIRST cycle into this
+    # directory: the device's activity (on the CPU its operators) and the
+    # program's spans (``cald_tpu_torch.utils.spans``) as a row of their own.
     profile_dir: str = ""
     eval_every_cycle: bool = True
     classwise: bool = False

@@ -137,6 +137,7 @@ from cald_tpu_torch.strategies.ltc import make_ltc_score_fn, run_ltc
 from cald_tpu_torch.strategies.random_strategy import random_select
 from cald_tpu_torch.strategies.ssm import CrossValidator, SSMConfig, ssm_select
 from cald_tpu_torch.strategies.vaal import VAALTrainer, vaal_select
+from cald_tpu_torch.utils import spans
 
 STRATEGIES = ("cald", "random", "ltc", "lsc", "ssm", "ll4al", "vaal")
 MODELS = ("faster", "retina", "faster_mobilenet", "retina_mobilenet")
@@ -672,14 +673,18 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
         if cycle < resume_cycle:
             history.append({"cycle": cycle, "resumed": True})
             continue
-        t0 = time.time()
         if cfg.profile_dir and not profiled and rank0:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=acts)
+            # the device's activity only (host operators slowed a score batch
+            # fourfold) and the program's spans; on the CPU the host is the device
+            profiler = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA if device.type == "cuda"
+                else torch.profiler.ProfilerActivity.CPU])
             profiler.start()
+            t_mark = time.perf_counter_ns()
+            _sync(device)                   # the trace's clock marker on a card
             profiled = True
+        t0 = time.perf_counter_ns()
+        cycle_span, phase = spans.begin("al.cycle", t0), spans.begin("al.train", t0)
         print(f"=== cycle {cycle}: labeled {len(pool.labeled)}, "
               f"unlabeled {len(pool.unlabeled)} ===")
         first_ckpt = (os.path.join(cfg.first_checkpoint_path, f"{cfg.dataset}_{cfg.model}_1st")
@@ -741,7 +746,9 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
                                                       canvases, group_ids, cycle=cycle,
                                                       device=device)
         _sync(device)
-        t_train = time.time()
+        t_train = time.perf_counter_ns()
+        spans.end(phase, t_train)
+        phase = spans.begin("al.eval", t_train)
         if (cycle == 0 and first_ckpt and not (cfg.skip and os.path.isdir(first_ckpt))
                 and rank0):
             save_checkpoint(first_ckpt, model, optimizer, scheduler, pool=pool,
@@ -757,7 +764,8 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
             stats = evaluate(model, test_loader, test_ds, kind=cfg.eval_kind, device=device,
                              classwise=cfg.classwise)
         _sync(device)
-        t_eval = time.time()
+        t_eval = time.perf_counter_ns()
+        spans.end(phase, t_eval)
 
         if cfg.output_dir and not resuming_here and rank0:
             save_checkpoint(os.path.join(cfg.output_dir, f"cycle_{cycle}"), model, optimizer,
@@ -766,25 +774,32 @@ def al_loop(cfg: ALConfig, *, datasets=None) -> list[dict]:
                             meta=_carry_meta(cycle, strategy_state),
                             extra=_carry_extra(strategy_state))
 
-        t_score = time.time()
+        t_score = time.perf_counter_ns()
+        phase = spans.begin("al.score", t_score)
         if cycle < cfg.cycles - 1:
             chosen = score_and_select(cfg, model, train_ds, pool, canvases, group_ids,
                                       cycle=cycle, device=device,
                                       strategy_state=strategy_state)
             pool = pool.select(np.asarray(chosen))
         _sync(device)
-        t_end = time.time()
+        t_end = time.perf_counter_ns()
+        spans.end(phase, t_end)
+        spans.end(cycle_span, t_end)
         if profiler is not None:
             profiler.stop()
             os.makedirs(cfg.profile_dir, exist_ok=True)
             path = os.path.join(cfg.profile_dir, f"cycle_{cycle}_trace.json")
             profiler.export_chrome_trace(path)
+            spans.merge_into_chrome_trace(
+                path, t_mark, "cudaDeviceSynchronize" if device.type == "cuda" else None)
+            spans.clear()
             profiler = None
             print(f"profile trace written to {path}")
         digest = hashlib.sha1(np.sort(np.asarray(pool.labeled)).tobytes()).hexdigest()[:12]
         history.append({"cycle": cycle, "labeled": int(len(pool.labeled)),
-                        "labeled_digest": digest, "eval": stats, "time_s": t_end - t0,
-                        "split_s": {"train": t_train - t0, "eval": t_eval - t_train,
-                                    "score": t_end - t_score}})
+                        "labeled_digest": digest, "eval": stats, "time_s": (t_end - t0) / 1e9,
+                        "split_s": {"train": (t_train - t0) / 1e9,
+                                    "eval": (t_eval - t_train) / 1e9,
+                                    "score": (t_end - t_score) / 1e9}})
         del model, optimizer, scheduler
     return history

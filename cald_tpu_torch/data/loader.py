@@ -14,6 +14,11 @@ CUDA canvas (every other field stays NumPy); JPEGs of the other batches are
 decoded by nvJPEG to host arrays. Of the JPEGs, only a file nvJPEG rejects
 (counted in ``native.rejected``) reaches Pillow. The consumers take
 ``images`` of either kind through ``batching.images_tensor``.
+
+While a profiler capture runs, each batch built is a span ``loader.build``
+on its worker thread (on the device route with ``loader.decode`` and
+``loader.resize`` inside), and the consumer's wait for the next batch a span
+``loader.wait`` (``cald_tpu_torch.utils.spans``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from cald_tpu_torch import native
 from cald_tpu_torch.data.batching import (
     Batch, Canvas, choose_canvas, make_padded_batch, resize_scale,
 )
+from cald_tpu_torch.utils.spans import span
 
 
 def _is_jpeg(path: str) -> bool:
@@ -101,31 +107,32 @@ class BatchLoader:
         return len(self.batches)
 
     def _build(self, batch_no: int, indices: list[int]) -> Batch:
-        records = [self.dataset.record(i) for i in indices]
-        if self.device.type == "cuda":
-            fast = self._build_device(indices, records)
-        else:
-            fast = self._build_native(indices, records)
-        if fast is not None:
-            return fast
-        images = [decode_image(r.image_path, self.device) for r in records]
-        boxes = [r.boxes for r in records]
-        if self.transform is not None:
-            rng = np.random.default_rng((self.seed, batch_no))
-            images, boxes = map(list, zip(*(
-                self.transform(im, bx, rng) for im, bx in zip(images, boxes))))
-        # one canvas per batch: must fit every member's resized shape
-        need_h = need_w = 0
-        for im in images:
-            h, w = im.shape[:2]
-            s = resize_scale(h, w, self.min_size, self.max_size)
-            need_h = max(need_h, int(round(h * s)))
-            need_w = max(need_w, int(round(w * s)))
-        canvas = choose_canvas(need_h, need_w, self.canvases)
-        return make_padded_batch(images, records, canvas,
-                                 min_size=self.min_size, max_size=self.max_size,
-                                 max_boxes=self.max_boxes, indices=indices,
-                                 boxes_override=boxes)
+        with span("loader.build"):
+            records = [self.dataset.record(i) for i in indices]
+            if self.device.type == "cuda":
+                fast = self._build_device(indices, records)
+            else:
+                fast = self._build_native(indices, records)
+            if fast is not None:
+                return fast
+            images = [decode_image(r.image_path, self.device) for r in records]
+            boxes = [r.boxes for r in records]
+            if self.transform is not None:
+                rng = np.random.default_rng((self.seed, batch_no))
+                images, boxes = map(list, zip(*(
+                    self.transform(im, bx, rng) for im, bx in zip(images, boxes))))
+            # one canvas per batch: must fit every member's resized shape
+            need_h = need_w = 0
+            for im in images:
+                h, w = im.shape[:2]
+                s = resize_scale(h, w, self.min_size, self.max_size)
+                need_h = max(need_h, int(round(h * s)))
+                need_w = max(need_w, int(round(w * s)))
+            canvas = choose_canvas(need_h, need_w, self.canvases)
+            return make_padded_batch(images, records, canvas,
+                                     min_size=self.min_size, max_size=self.max_size,
+                                     max_boxes=self.max_boxes, indices=indices,
+                                     boxes_override=boxes)
 
     def _fused_plan(self, records) -> tuple[Canvas, list[float]] | None:
         """The fused paths' canvas and per-image scales, from the records'
@@ -240,7 +247,8 @@ class BatchLoader:
         thread.start()
         try:
             while True:
-                item = out_q.get()
+                with span("loader.wait"):       # as long as the queue is empty
+                    item = out_q.get()
                 if item is None:
                     break
                 if isinstance(item, Exception):

@@ -41,6 +41,7 @@ from cald_tpu_torch.models.roi_heads import (
 from cald_tpu_torch.models.rpn import RPNHead, rpn_loss, select_proposals
 from cald_tpu_torch.ops.roi_align import roi_levels
 from cald_tpu_torch.ops.roi_align_cuda import roi_align_kernel, window_roi_align
+from cald_tpu_torch.utils.spans import span
 
 # ResNet backbones: (blocks per stage, width)
 BACKBONES = {"resnet50": ((3, 4, 6, 3), 64), "tiny": ((1, 1, 1, 1), 16)}
@@ -224,34 +225,38 @@ class FasterRCNN(nn.Module):
         fixed-slot Detections in the canvas (resized-image) coordinates:
         ``detections_per_img`` slots, or ``ssm_out_slots`` in ``ssm_mode``."""
         cfg = self.cfg
-        pyramid = self.features(images, valid_hw, allow_fused=True)
-        objectness, deltas = self.rpn_head(pyramid)
-        anchors, counts = self._anchors(pyramid, images.device)
-        props, _, pvalid = select_proposals(
-            objectness, deltas, anchors, counts, valid_hw,
-            pre_nms_top_n=cfg.rpn_pre_nms_top_n_test,
-            post_nms_top_n=cfg.rpn_post_nms_top_n_test, nms_thresh=cfg.rpn_nms_thresh)
+        with span("detect.trunk"):
+            pyramid = self.features(images, valid_hw, allow_fused=True)
+        with span("detect.rpn"):
+            objectness, deltas = self.rpn_head(pyramid)
+            anchors, counts = self._anchors(pyramid, images.device)
+            props, _, pvalid = select_proposals(
+                objectness, deltas, anchors, counts, valid_hw,
+                pre_nms_top_n=cfg.rpn_pre_nms_top_n_test,
+                post_nms_top_n=cfg.rpn_post_nms_top_n_test, nms_thresh=cfg.rpn_nms_thresh)
 
-        b, n = props.shape[:2]
-        levels, scales = self._roi_levels(pyramid)
-        props, pvalid = props.contiguous(), pvalid.contiguous()
-        if os.environ.get("CALD_TPU_ROI_FLM", "1") == "1":
-            pooled = self.roi_align(levels, props, pvalid, spatial_scales=scales)
-        else:
-            pooled = window_roi_align(levels, props, pvalid,
-                                      roi_levels(props, scales).contiguous(),
-                                      spatial_scales=scales)
-        rep = self.box_head(pooled.reshape(b * n, -1))
-        class_logits, box_regression = self.box_predictor(rep)
-        args = (class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1), props,
-                pvalid, valid_hw)
-        if cfg.ssm_mode:
-            return ssm_postprocess_detections(
+        with span("detect.box_head"):
+            b, n = props.shape[:2]
+            levels, scales = self._roi_levels(pyramid)
+            props, pvalid = props.contiguous(), pvalid.contiguous()
+            if os.environ.get("CALD_TPU_ROI_FLM", "1") == "1":
+                pooled = self.roi_align(levels, props, pvalid, spatial_scales=scales)
+            else:
+                pooled = window_roi_align(levels, props, pvalid,
+                                          roi_levels(props, scales).contiguous(),
+                                          spatial_scales=scales)
+            rep = self.box_head(pooled.reshape(b * n, -1))
+            class_logits, box_regression = self.box_predictor(rep)
+        with span("detect.postprocess"):
+            args = (class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1), props,
+                    pvalid, valid_hw)
+            if cfg.ssm_mode:
+                return ssm_postprocess_detections(
+                    *args, score_thresh=cfg.box_score_thresh, nms_thresh=cfg.box_nms_thresh,
+                    detections_per_class=cfg.detections_per_img, out_slots=cfg.ssm_out_slots)
+            return postprocess_detections(
                 *args, score_thresh=cfg.box_score_thresh, nms_thresh=cfg.box_nms_thresh,
-                detections_per_class=cfg.detections_per_img, out_slots=cfg.ssm_out_slots)
-        return postprocess_detections(
-            *args, score_thresh=cfg.box_score_thresh, nms_thresh=cfg.box_nms_thresh,
-            detections_per_img=cfg.detections_per_img)
+                detections_per_img=cfg.detections_per_img)
 
     def forward(self, images: torch.Tensor, valid_hw: torch.Tensor) -> Detections:
         return self.detect(images, valid_hw)

@@ -52,6 +52,7 @@ from cald_tpu_torch.models.resnet import ResNetBackbone
 from cald_tpu_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes
 from cald_tpu_torch.ops.losses import sigmoid_focal_loss
 from cald_tpu_torch.ops.nms import batched_nms
+from cald_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,13 +264,16 @@ class RetinaNet(nn.Module):
         """images (B, H, W, 3) raw pixels; valid_hw (B, 2) int ->
         ``detections_per_img`` slots per image in canvas coordinates."""
         cfg = self.cfg
-        pyramid = self.features(images, valid_hw)
-        cls_logits, bbox_reg = self.head(pyramid)
-        anchors, counts = self._anchors(pyramid, images.device)
-        return retinanet_postprocess(
-            cls_logits, bbox_reg, anchors, counts, valid_hw, score_thresh=cfg.score_thresh,
-            nms_thresh=cfg.nms_thresh, detections_per_img=cfg.detections_per_img,
-            topk_candidates=cfg.topk_candidates)
+        with span("detect.trunk"):
+            pyramid = self.features(images, valid_hw)
+        with span("detect.head"):
+            cls_logits, bbox_reg = self.head(pyramid)
+        with span("detect.postprocess"):
+            anchors, counts = self._anchors(pyramid, images.device)
+            return retinanet_postprocess(
+                cls_logits, bbox_reg, anchors, counts, valid_hw, score_thresh=cfg.score_thresh,
+                nms_thresh=cfg.nms_thresh, detections_per_img=cfg.detections_per_img,
+                topk_candidates=cfg.topk_candidates)
 
     def forward(self, images: torch.Tensor, valid_hw: torch.Tensor) -> Detections:
         return self.detect(images, valid_hw)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from cald_tpu_torch.ops.cuda_build import CSRC, KernelEntry, build_library
+from cald_tpu_torch.utils.spans import span
 
 SOURCE = CSRC / "jpeg_decode.cu"
 LIBRARIES = ("nvjpeg",)
@@ -235,12 +236,15 @@ def decode_resize_batch_cuda(paths: Sequence[str], scales: Sequence[float],
                              align=256)
     stream = thread_stream(device)
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        pixels = torch.empty(total, dtype=torch.uint8, device=device)
-        for d, p, (w, _, c), o in zip(datas, paths, infos, meta[:, 0].tolist()):
-            nvjpeg.decode(d, pixels[o:], w, c, p)
-        canvas = torch.empty((len(paths), *canvas_hw, 3), dtype=torch.float32, device=device)
-        resize_into_canvas(pixels, torch.from_numpy(meta), canvas)
-        stream.synchronize()
+        with span("loader.decode"):
+            pixels = torch.empty(total, dtype=torch.uint8, device=device)
+            for d, p, (w, _, c), o in zip(datas, paths, infos, meta[:, 0].tolist()):
+                nvjpeg.decode(d, pixels[o:], w, c, p)
+        with span("loader.resize"):
+            canvas = torch.empty((len(paths), *canvas_hw, 3), dtype=torch.float32,
+                                 device=device)
+            resize_into_canvas(pixels, torch.from_numpy(meta), canvas)
+            stream.synchronize()
     # the consumer reads the canvas on the device's default stream: its memory
     # goes back to this stream's pool only once that work is done
     canvas.record_stream(torch.cuda.default_stream(device))

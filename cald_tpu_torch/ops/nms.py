@@ -11,7 +11,9 @@ The same tiled scheme as the JAX module, over an explicit batch dimension:
 Semantics are torchvision's: a box is suppressed when a surviving
 higher-scoring box overlaps it with IoU strictly greater than the threshold.
 The tile loop is static (K / TILE steps); the fixpoint loop stops when no image
-of the batch changed, which costs one device-to-host sync per sweep.
+of the batch changed, which costs one device-to-host sync per sweep. While a
+profiler capture runs, each call is a span ``nms`` and each sweep's check
+adds one to its counter ``nms.sweeps`` (``cald_tpu_torch.utils.spans``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from cald_tpu_torch.ops.boxes import box_iou
+from cald_tpu_torch.utils.spans import count, span
 
 NEG_INF = -1e30
 TILE = 512
@@ -39,6 +42,7 @@ def _self_suppression(iou: torch.Tensor, alive0: torch.Tensor,
     a = sweep(alive0)
     for _ in range(t):
         nxt = sweep(a)
+        count("nms.sweeps")
         if torch.equal(nxt, a):
             break
         a = nxt
@@ -74,30 +78,31 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, *, iou_threshold: float,
     Returns keep_idx (B, max_outputs) int64 indices into N, score-descending,
     and keep_valid (B, max_outputs) bool.
     """
-    b, n = scores.shape
-    p = min(pre_nms_size or n, n)
-    p_pad = -(-p // TILE) * TILE
-    if valid is None:
-        valid = torch.ones_like(scores, dtype=torch.bool)
-    masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    order = torch.sort(-masked, dim=1, stable=True).indices[:, :p]   # (B, P)
-    sboxes = torch.gather(boxes, 1, order[..., None].expand(b, p, 4))
-    salive = torch.gather(masked, 1, order) > NEG_INF / 2
-    if p_pad != p:  # pad to the tile size with dead slots
-        sboxes = torch.cat([sboxes, sboxes.new_zeros((b, p_pad - p, 4))], dim=1)
-        salive = torch.cat([salive, salive.new_zeros((b, p_pad - p))], dim=1)
+    with span("nms"):
+        b, n = scores.shape
+        p = min(pre_nms_size or n, n)
+        p_pad = -(-p // TILE) * TILE
+        if valid is None:
+            valid = torch.ones_like(scores, dtype=torch.bool)
+        masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        order = torch.sort(-masked, dim=1, stable=True).indices[:, :p]   # (B, P)
+        sboxes = torch.gather(boxes, 1, order[..., None].expand(b, p, 4))
+        salive = torch.gather(masked, 1, order) > NEG_INF / 2
+        if p_pad != p:  # pad to the tile size with dead slots
+            sboxes = torch.cat([sboxes, sboxes.new_zeros((b, p_pad - p, 4))], dim=1)
+            salive = torch.cat([salive, salive.new_zeros((b, p_pad - p))], dim=1)
 
-    kept = _tiled_suppression(sboxes, salive, iou_threshold)[:, :p]
+        kept = _tiled_suppression(sboxes, salive, iou_threshold)[:, :p]
 
-    # compact kept entries (already score-sorted) into max_outputs slots; the
-    # extra column collects everything that does not get a slot
-    rank = torch.cumsum(kept.to(torch.int64), dim=1) - 1
-    slot = torch.where(kept & (rank < max_outputs), rank,
-                       torch.full_like(rank, max_outputs))
-    keep_idx = order.new_zeros((b, max_outputs + 1)).scatter_(1, slot, order)
-    keep_valid = kept.new_zeros((b, max_outputs + 1)).scatter_(
-        1, slot, torch.ones_like(kept))
-    return keep_idx[:, :max_outputs], keep_valid[:, :max_outputs]
+        # compact kept entries (already score-sorted) into max_outputs slots; the
+        # extra column collects everything that does not get a slot
+        rank = torch.cumsum(kept.to(torch.int64), dim=1) - 1
+        slot = torch.where(kept & (rank < max_outputs), rank,
+                           torch.full_like(rank, max_outputs))
+        keep_idx = order.new_zeros((b, max_outputs + 1)).scatter_(1, slot, order)
+        keep_valid = kept.new_zeros((b, max_outputs + 1)).scatter_(
+            1, slot, torch.ones_like(kept))
+        return keep_idx[:, :max_outputs], keep_valid[:, :max_outputs]
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor, *,

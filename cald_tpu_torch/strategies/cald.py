@@ -29,6 +29,7 @@ from cald_tpu_torch.augment.suite import Draw, build_aug_batch, generator_draw
 from cald_tpu_torch.data.batching import images_tensor
 from cald_tpu_torch.models.detections import Detections
 from cald_tpu_torch.ops.consistency import cald_consistency, class_correlation
+from cald_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,29 +133,33 @@ def make_cald_score_fn(model, cfg: CALDConfig, num_classes: int) -> Callable:
 
     @torch.inference_mode()
     def score_batch(images: torch.Tensor, valid_hw: torch.Tensor, draw: Draw):
-        b = images.shape[0]
-        base = model.detect(images, valid_hw)
-        ref_boxes, ref_scores, ref_labels, ref_scores_cls, ref_prob_max, ref_valid = \
-            subsample_reference(base.boxes, base.scores, base.labels, base.scores_cls,
-                                base.prob_max, base.valid, k_ref=cfg.k_ref,
-                                threshold=cfg.subsample_threshold)
-        base_corr = class_correlation(ref_scores, ref_labels, ref_valid, num_classes - 1)
-
-        # augs run in the model's compute dtype (the detector casts to it anyway)
-        aug_in = images if model.dtype is None else images.to(model.dtype)
-        aug_images, aug_boxes, aug_hw = build_aug_batch(
-            aug_in, ref_boxes, ref_valid, valid_hw, aug_names, draw)
-        dets = _detect_augs(aug_images, aug_hw)
-
-        consistency = cald_consistency(
-            aug_boxes, ref_scores_cls, ref_prob_max, ref_valid, dets.boxes,
-            dets.scores_cls, dets.prob_max, dets.valid, cfg.base_point)
-        aug_corr = class_correlation(dets.scores, dets.labels, dets.valid,
-                                     num_classes - 1)               # (B, A, C-1)
-        mean_corr = torch.cat([base_corr[:, None], aug_corr], dim=1).mean(dim=1)
-        # an image with no base detections keeps only its (all-zero) base corr
-        cls_corrs = torch.where(ref_valid.any(dim=-1)[:, None], mean_corr, base_corr)
-        return consistency, cls_corrs
+        with span("score.batch"):
+            with span("score.base_detect"):
+                base = model.detect(images, valid_hw)
+            with span("score.reference"):
+                ref_boxes, ref_scores, ref_labels, ref_scores_cls, ref_prob_max, ref_valid = \
+                    subsample_reference(base.boxes, base.scores, base.labels,
+                                        base.scores_cls, base.prob_max, base.valid,
+                                        k_ref=cfg.k_ref, threshold=cfg.subsample_threshold)
+                base_corr = class_correlation(ref_scores, ref_labels, ref_valid,
+                                              num_classes - 1)
+            with span("score.augment"):
+                # augs run in the model's compute dtype (the detector casts to it anyway)
+                aug_in = images if model.dtype is None else images.to(model.dtype)
+                aug_images, aug_boxes, aug_hw = build_aug_batch(
+                    aug_in, ref_boxes, ref_valid, valid_hw, aug_names, draw)
+            with span("score.aug_detect"):
+                dets = _detect_augs(aug_images, aug_hw)
+            with span("score.consistency"):
+                consistency = cald_consistency(
+                    aug_boxes, ref_scores_cls, ref_prob_max, ref_valid, dets.boxes,
+                    dets.scores_cls, dets.prob_max, dets.valid, cfg.base_point)
+                aug_corr = class_correlation(dets.scores, dets.labels, dets.valid,
+                                             num_classes - 1)       # (B, A, C-1)
+                mean_corr = torch.cat([base_corr[:, None], aug_corr], dim=1).mean(dim=1)
+                # an image with no base detections keeps only its (all-zero) base corr
+                cls_corrs = torch.where(ref_valid.any(dim=-1)[:, None], mean_corr, base_corr)
+            return consistency, cls_corrs
 
     return score_batch
 
@@ -179,8 +184,9 @@ def score_pool(score_fn: Callable, loader: Iterable, pool_indices: Sequence[int]
         images = images_tensor(batch.images, generator.device)
         valid_hw = torch.from_numpy(np.asarray(batch.valid_hw)).to(generator.device)
         c, corr = score_fn(images, valid_hw, draw)
-        c = c.double().cpu().numpy()
-        corr = corr.double().cpu().numpy()
+        with span("score.to_host"):
+            c = c.double().cpu().numpy()
+            corr = corr.double().cpu().numpy()
         if cls_corrs is None:
             cls_corrs = np.zeros((n, corr.shape[-1]), np.float64)
         for i, idx in enumerate(batch.image_idx):

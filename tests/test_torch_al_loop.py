@@ -12,6 +12,7 @@ checkpoint with their carry-state), the RetinaNet models (tiny through
 import dataclasses
 import functools
 import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -561,15 +562,51 @@ def test_build_model_frozen_prefixes_lossnet_levels_and_retina_trim():
     assert mobile.cfg.strides == (32, 32, 64)
 
 
+def _trace_spans(prof_dir) -> list[dict]:
+    """The program's spans in a --profile-dir trace: the events of the
+    process row named ``cald_tpu_torch spans``."""
+    assert os.listdir(prof_dir) == ["cycle_0_trace.json"]
+    with open(os.path.join(prof_dir, "cycle_0_trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    pid = next(e["pid"] for e in events if e.get("ph") == "M"
+               and e.get("args", {}).get("name") == "cald_tpu_torch spans")
+    return [e for e in events if e.get("pid") == pid and e.get("ph") == "X"]
+
+
 def test_skip_reuses_the_first_cycle_and_profile_writes_a_trace(voc, tmp_path):
     """--first-checkpoint-path saves cycle 0's model with its split; --skip
     loads it instead of training (same evaluation); --profile-dir writes the
-    first cycle's chrome trace."""
+    first cycle's chrome trace, the program's spans (``al.*``, and with a
+    selection ``score.*`` and the detectors') in a row of their own."""
     first = str(tmp_path / "first")
     kw = dict(cycles=1, first_checkpoint_path=first)
     trained = driver.al_loop(_cfg(voc["npy"], profile_dir=str(tmp_path / "prof"), **kw))
     assert os.path.isfile(os.path.join(first, "voc2007_faster_1st", "model.pt"))
     assert os.listdir(tmp_path / "prof") == ["cycle_0_trace.json"]
+    rows = _trace_spans(tmp_path / "prof")
+    al = {e["name"]: e for e in rows if e["name"].startswith("al.")}
+    assert set(al) == {"al.cycle", "al.train", "al.eval", "al.score"}
+    split = trained[0]["split_s"]
+    for phase in ("train", "eval", "score"):
+        assert al[f"al.{phase}"]["args"]["parent"] == al["al.cycle"]["args"]["id"]
+        assert al[f"al.{phase}"]["dur"] == pytest.approx(split[phase] * 1e6, abs=1e-3)
     skipped = driver.al_loop(_cfg(voc["npy"], skip=True, seed=5, **kw))
     assert skipped[0]["eval"] == trained[0]["eval"]
     assert skipped[0]["labeled_digest"] == trained[0]["labeled_digest"]
+
+    # a profiled cycle that scores the pool: the score batches' spans under al.score
+    driver.al_loop(_cfg(voc["npy"], skip=True, first_checkpoint_path=first,
+                        profile_dir=str(tmp_path / "prof_score")))
+    rows = _trace_spans(tmp_path / "prof_score")
+    ids = {e["args"]["id"]: e for e in rows}
+    names = {e["name"] for e in rows}
+    assert {"al.cycle", "al.train", "al.eval", "al.score", "score.batch", "score.base_detect",
+            "score.reference", "score.augment", "score.aug_detect", "score.consistency",
+            "score.to_host", "detect.trunk", "detect.rpn", "detect.box_head",
+            "detect.postprocess", "nms", "loader.build"} <= names
+    for e in rows:
+        if e["name"] == "score.batch":
+            assert ids[e["args"]["parent"]]["name"] == "al.score"
+            assert ids[e["args"]["parent"]]["ts"] <= e["ts"]
+        if e["name"] == "nms":
+            assert e["args"]["nms.sweeps"] >= 1
