@@ -132,7 +132,7 @@ class FasterRCNN(nn.Module):
             self.backbone = ResNetBackbone(blocks, width, dtype=dt, norm=cfg.norm)
         else:
             raise ValueError(f"unknown backbone {cfg.backbone!r}")
-        self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, dtype=dt)
+        self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, dtype=dt, norm=cfg.norm)
         a_per_cell = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
         self.rpn_head = RPNHead(a_per_cell, cfg.fpn_channels, dtype=dt)
         pooled = 7 * 7 * cfg.fpn_channels

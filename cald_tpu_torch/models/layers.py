@@ -4,6 +4,13 @@
 ``dtype``, as Flax's ``nn.Conv(dtype=...)``/``nn.Dense(dtype=...)`` do: the
 input, weight and bias are cast to ``dtype`` for the call. Weights use
 PyTorch's layouts (OIHW, (out, in)); ``convert/from_flax.py`` maps Flax's.
+
+The trunk's inference route (``inference_route``): on a CUDA tensor with
+autograd off, a frozen-norm ResNet and the FPN after it run each conv
+through ``Conv.folded`` (the frozen norm after it folded into its weight,
+no bias) and finish it with one pass of K8 (``ops/conv_epilogue.py``):
+bias, residual or top-down merge, ReLU. Everywhere else they run the
+module chain below.
 """
 
 from __future__ import annotations
@@ -13,6 +20,20 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cald_tpu_torch.ops.bottleneck import fold_frozen
+
+
+def inference_route(x: torch.Tensor, conv: "Conv", norm: str) -> bool:
+    """Whether a trunk with ``norm`` norms whose convs are like ``conv``
+    (its compute dtype, its output channels) folds its frozen norms and
+    finishes its convs with K8 for input ``x``: frozen norms (group norms
+    have no affine form to fold), a CUDA tensor (K8 is a CUDA kernel) with
+    autograd off (``no_grad`` or ``inference_mode``; K8 has no backward, so
+    training never does), a dtype K8 takes and channels a multiple of 8."""
+    return (norm == "frozen" and x.is_cuda and not torch.is_grad_enabled()
+            and (conv.dtype or x.dtype) in (torch.float32, torch.bfloat16)
+            and conv.weight.shape[0] % 8 == 0)
 
 
 class Conv(nn.Module):
@@ -36,6 +57,18 @@ class Conv(nn.Module):
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, 1,
                         self.groups)
+
+    def folded(self, x: torch.Tensor, norm: "FrozenBatchNorm | None" = None):
+        """The conv with the frozen ``norm`` after it folded into its weight
+        (in float32, cast once to the compute dtype) and no bias added:
+        (y, bias), bias float32 (out_ch,) for the epilogue: the norm's shift
+        (a conv before a norm has no bias of its own), else the conv's bias."""
+        weight, bias = self.weight, self.bias
+        if norm is not None:
+            weight, bias = fold_frozen(weight, *norm.fold())
+        dt = self.dtype or x.dtype
+        y = F.conv2d(x.to(dt), weight.to(dt), None, self.stride, self.padding, 1, self.groups)
+        return y, bias.float()
 
 
 class Dense(nn.Module):

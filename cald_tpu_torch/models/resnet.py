@@ -19,6 +19,15 @@ Documented difference: the JAX package fuses only on a TPU backend and
 falls back to XLA where Mosaic finds no tiling with ``TW % 8 == 0`` (for
 example a stage 4 pixels wide); the port fuses every suffix, whatever its
 shape, which computes the same function.
+
+On the trunk's inference route (``layers.inference_route``: frozen norms,
+a CUDA input with autograd off, widths multiples of 8) the backbone folds
+every norm into its conv and finishes each conv with one K8 pass
+(``ops/conv_epilogue.py``; ``forward_folded``): the stem and each block's
+conv1 and conv2 with bias and ReLU, conv3 with its bias (plus the
+projection shortcut's), the identity or the shortcut's folded conv, and
+ReLU. The suffixes K5/K6 take stay as they are. Group norm, training and
+CPU tensors run the module chain.
 """
 
 from __future__ import annotations
@@ -30,9 +39,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cald_tpu_torch.models import layers
 from cald_tpu_torch.models.layers import Conv, make_norm
 from cald_tpu_torch.ops.bottleneck import fold_frozen
 from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
+from cald_tpu_torch.ops.conv_epilogue import conv_epilogue_kernel
 
 
 class Bottleneck(nn.Module):
@@ -66,6 +77,18 @@ class Bottleneck(nn.Module):
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
         return F.relu(y + identity)
+
+    def forward_folded(self, x: torch.Tensor) -> torch.Tensor:
+        """The block on the inference route: three folded convs and a
+        shortcut's, each finished by K8; frozen norms only."""
+        y = conv_epilogue_kernel(*self.conv1.folded(x, self.bn1), relu=True)
+        y = conv_epilogue_kernel(*self.conv2.folded(y, self.bn2), relu=True)
+        y, bias = self.conv3.folded(y, self.bn3)
+        identity = x
+        if self.downsample_conv is not None:
+            identity, shift = self.downsample_conv.folded(x, self.downsample_bn)
+            bias = bias + shift
+        return conv_epilogue_kernel(y, bias, identity, relu=True)
 
     def folded(self) -> tuple:
         """The folded tuple of a stride-1 identity block: (w1 (P, C), b1,
@@ -115,13 +138,27 @@ class ResNetBackbone(nn.Module):
         return os.environ.get("CALD_TPU_PALLAS_BNECK", "")
 
     def forward(self, x: torch.Tensor, *, allow_fused: bool = False) -> dict[str, torch.Tensor]:
-        y = F.relu(self.bn1(self.conv1(x)))
+        # every conv's width is a multiple of the stem's
+        fold = layers.inference_route(x, self.conv1, self.norm)
+        return self._forward(x, fold, allow_fused)
+
+    def forward_folded(self, x: torch.Tensor, *,
+                       allow_fused: bool = False) -> dict[str, torch.Tensor]:
+        """``forward`` on the inference route, whatever the input's device;
+        frozen norms only."""
+        return self._forward(x, True, allow_fused)
+
+    def _forward(self, x: torch.Tensor, fold: bool, allow_fused: bool) -> dict[str, torch.Tensor]:
+        if fold:
+            y = conv_epilogue_kernel(*self.conv1.folded(x, self.bn1), relu=True)
+        else:
+            y = F.relu(self.bn1(self.conv1(x)))
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         fuse = self._fuse_gate() if allow_fused else ""
         feats = {}
         for stage, names in enumerate(self.stages):
             blocks = [getattr(self, name) for name in names]
-            y = blocks[0](y)
+            y = blocks[0].forward_folded(y) if fold else blocks[0](y)
             if fuse and len(blocks) > 1:
                 folded = [blk.folded() for blk in blocks[1:]]
                 if fuse == "stage":
@@ -131,6 +168,6 @@ class ResNetBackbone(nn.Module):
                         y = fused_block_kernel(y, f)
             else:
                 for blk in blocks[1:]:
-                    y = blk(y)
+                    y = blk.forward_folded(y) if fold else blk(y)
             feats[f"c{stage + 2}"] = y
         return feats

@@ -213,7 +213,7 @@ class RetinaNet(nn.Module):
             blocks, width = BACKBONES[cfg.backbone]
             self.backbone = ResNetBackbone(blocks, width, dtype=dt, norm=cfg.norm)
             self.fpn = FPN(self.backbone.out_channels[1:], cfg.fpn_channels, dtype=dt,
-                           extra="p6p7")
+                           extra="p6p7", norm=cfg.norm)
         else:
             raise ValueError(f"unknown backbone {cfg.backbone!r}")
         a_per_cell = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)

@@ -219,6 +219,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      image of every batch (the training batches' to host arrays),
      ``native.rejected == 0`` (``jpeg_decode_phase``, ``jpeg_al_phase``).
      Phases 12(d), 17 and 18 read JPEG trees too, through the same route.
+ 20. K8, the trunk's convolution epilogue (run right after phase 4's
+     timing, on its model): bit for bit its plain version at the layer-1
+     conv3 shape (B=16, 160x256, C=256, identity residual, ReLU) and the
+     largest FPN lateral (the coarser level at half resolution), its time,
+     the plain version's, the chain of PyTorch passes it replaces and its
+     bound; the fold of the model's frozen norms into its convs as one
+     detect makes it, timed alone (``conv_epilogue_phase``). Its launches
+     are counted on phase 4's score calls (57 a detect: 49 in R50's body,
+     8 in the FPN) and phase 9's (21 a detect: the stem, block 0 of each
+     stage, the FPN).
 
 Every kernel's entry has its launches on the path that runs it (K1 phase 4,
 K2 and K3 phase 7, K4 phase 11, K5 and K6 phase 9; K1's per LS/C, LT/C and
@@ -237,7 +247,8 @@ detect and CALD score call and K2/K3's per step of the AL-curve runs,
 ``launches_al_curves``, and their holds at phase 18's new shapes,
 ``al_curves``, from phase 18; K7's per batch of phase 19(d)'s loop,
 its COCO-size hold, the nvJPEG checks and the loader's batch times from
-phase 19),
+phase 19; K8's per score call from phases 4 and 9, its two holds and
+the fold's time from phase 20),
 its time (K1: the median of three turns, each the kernel then its plain
 version; K5 and K6: on weights restaged once, ``ms_with_restaging``
 through the wrappers) and its plain version's, its bound (the larger of
@@ -614,20 +625,21 @@ def calibrate_norms_(model, images, valid_hw, min_var: float = 0.0) -> None:
     bottlenecks (random kaiming weights grow them block by block). A
     variance below ``min_var`` (a channel the random weights leave dead)
     becomes ``min_var``, which caps that channel's gain once training wakes
-    it."""
+    it. The forward runs with autograd on: only the module chain calls each
+    norm (with autograd off a CUDA trunk folds the norms into its convs)."""
     import torch
 
     from cald_tpu_torch.models.layers import FrozenBatchNorm
 
     def pre_hook(mod, args):
-        x = args[0].float()
+        x = args[0].detach().float()
         mod.mean.copy_(x.mean(dim=(0, 2, 3)))
         mod.var.copy_(x.var(dim=(0, 2, 3)).clamp_min(min_var))
 
     handles = [m.register_forward_pre_hook(pre_hook) for m in model.modules()
                if isinstance(m, FrozenBatchNorm)]
     try:
-        with torch.inference_mode(False), torch.no_grad():
+        with torch.inference_mode(False), torch.enable_grad():
             model.features(images, valid_hw)
     finally:
         for h in handles:
@@ -1069,8 +1081,8 @@ def fused_path(device, kernels: dict, card: str) -> dict:
         os.environ["CALD_TPU_PALLAS_BNECK"] = mode
         label = f"fused path {mode!r}"
         score_fn, pool, launches = main_path(
-            model, device, kernels, {"roi_align": 2, kname: 2 * per_detect[kname]},
-            label=label)
+            model, device, kernels, {"roi_align": 2, kname: 2 * per_detect[kname],
+                                     "conv_epilogue": 2 * K8_PER_FUSED_DETECT}, label=label)
         with torch.inference_mode():
             fused = model.features(images, valid_hw, allow_fused=True)
             fused_cond = cond.features(images, valid_hw, allow_fused=True)
@@ -1093,7 +1105,9 @@ def fused_path(device, kernels: dict, card: str) -> dict:
         dt = time.perf_counter() - t0
         print(f"{label} time: {reps} warm score calls of B={BATCH}: {dt / reps * 1e3:.1f} "
               f"ms/call, {reps * BATCH / dt:.2f} images/s on {card}")
-        result[mode] = {"launches": launches[kname], "ms_per_call": dt / reps * 1e3,
+        result[mode] = {"launches": launches[kname],
+                        "k8_launches_per_score_call": launches["conv_epilogue"] / N_BATCHES,
+                        "ms_per_call": dt / reps * 1e3,
                         "images_per_s": reps * BATCH / dt}
         del score_fn, pool
 
@@ -3853,6 +3867,129 @@ def jpeg_al_phase(device, card: str, workdir: str) -> dict:
             "decoded": decoded, "rejected": rejected, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: K8, the trunk's convolution epilogue, on the inference route
+# ---------------------------------------------------------------------------
+EPILOGUE_BATCH = 16
+EPILOGUE_REPS = 3
+# K8 launches in one R50-FPN detect on the inference route: the stem and 16
+# blocks of 3 in the body, 8 in the FPN (Faster R-CNN's 4 laterals and 4
+# outputs); with K5/K6 on the suffixes, the stem, block 0 of each stage and
+# the FPN
+K8_PER_DETECT = 1 + 3 * 16 + 8
+K8_PER_FUSED_DETECT = 1 + 3 * 4 + 8
+
+
+def conv_epilogue_phase(device, card: str, model=None) -> dict:
+    """Phase 20: K8 against its plain version (bit for bit) at the layer-1
+    conv3 shape (B=16 on the 640x1024 canvas: 160x256, C=256, identity
+    residual, ReLU) and the largest FPN lateral (the same map with the
+    coarser level at 80x128, no ReLU); the kernel's time (median of
+    ``EPILOGUE_REPS`` turns, each with the plain version's), its bound (bytes
+    over 3.35 TB/s) and the chain it replaces as the yardstick: the frozen
+    norm's ``y * w + b`` in bf16, ``+ r``, ``relu`` (conv3), or the conv
+    bias add, the nearest upsample and the merge add (lateral). With a
+    model, the fold of its backbone's frozen norms into their convs as one
+    detect on the route makes it (``Conv.folded``'s weight and bias, every
+    conv of the backbone), timed alone: back to back by CUDA events, and the
+    host's time to issue it."""
+    import torch
+    import torch.nn.functional as F
+
+    from cald_tpu_torch.ops.conv_epilogue import conv_epilogue, conv_epilogue_kernel
+
+    h, w = CANVAS[0] // 4, CANVAS[1] // 4
+    c, b = 256, EPILOGUE_BATCH
+    g = torch.Generator(device).manual_seed(SEED + 20)
+    cl = torch.channels_last
+    bf = torch.bfloat16
+
+    def act(shape):
+        return torch.randn(shape, device=device, generator=g).to(bf).contiguous(memory_format=cl)
+
+    y = act((b, c, h, w))
+    bias = torch.randn(c, device=device, generator=g)
+    scale = torch.rand(c, device=device, generator=g).to(bf)
+    shift = bias.to(bf)
+    shapes = {"layer1_conv3": (act((b, c, h, w)), True),
+              "fpn_lateral_p2": (act((b, c, h // 2, w // 2)), False)}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    holds = {}
+    for name, (r, relu) in shapes.items():
+        mode = 1 if r.shape == y.shape else 2
+        want = conv_epilogue(y, bias, r, relu=relu)
+        got = conv_epilogue_kernel(y.clone(memory_format=cl), bias, r, relu=relu)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"epilogue: K8 differs from its plain version at {name}: max "
+                                 f"|diff| {(got.float() - want.float()).abs().max().item()}")
+        work = y.clone(memory_format=cl)
+        launch = lambda: conv_epilogue_kernel._launch(
+            work.data_ptr(), bias.data_ptr(), r.data_ptr(), mode, int(relu), 1, b, h, w, c,
+            stream)
+        wrapper = lambda: conv_epilogue_kernel(work, bias, r, relu=relu)
+        plain = lambda: conv_epilogue(y, bias, r, relu=relu)
+        if relu:        # FrozenBatchNorm, the residual add, the ReLU
+            chain = lambda: F.relu(y * scale[:, None, None] + shift[:, None, None] + r)
+        else:           # the conv's bias add, the upsample, the merge add
+            chain = lambda: (y + shift[:, None, None]) + F.interpolate(
+                r, size=(h, w), mode="nearest-exact")
+        turns = {"ms": [], "wrapper_ms": [], "plain_ms": [], "chain_ms": []}
+        for _ in range(EPILOGUE_REPS):
+            turns["ms"].append(cuda_ms(launch, 50))
+            turns["wrapper_ms"].append(cuda_ms(wrapper, 50))
+            turns["plain_ms"].append(cuda_ms(plain, 10))
+            turns["chain_ms"].append(cuda_ms(chain, 10))
+        n_bytes = 2 * y.numel() * y.element_size() + r.numel() * r.element_size() + c * 4
+        holds[name] = {"shape": [b, c, h, w], "r": list(r.shape), "relu": relu,
+                       **{k: float(np.median(v)) for k, v in turns.items()},
+                       "turns": turns, **bound(n_bytes, 0.0, F32_OPS_S)}
+        hb = holds[name]
+        print(f"epilogue (a): K8 at {name} (B={b}, C={c}, {h}x{w}, r {tuple(r.shape)}, relu "
+              f"{relu}): bit for bit its plain version; kernel {hb['ms']:.4f} ms (wrapper "
+              f"{hb['wrapper_ms']:.4f}), plain {hb['plain_ms']:.4f} ms, today's chain "
+              f"{hb['chain_ms']:.4f} ms, bound {hb['bound_ms']:.4f} ms ({hb['bound_by']}, "
+              f"{n_bytes / 1e6:.1f} MB), {100 * hb['bound_ms'] / hb['ms']:.1f}% of it on {card}")
+        del work
+    fold = None
+    if model is not None:
+        from cald_tpu_torch.models.resnet import Bottleneck
+        from cald_tpu_torch.ops.bottleneck import fold_frozen
+
+        bb = model.backbone
+        pairs = [(bb.conv1, bb.bn1)]
+        for blk in bb.modules():
+            if isinstance(blk, Bottleneck):
+                pairs += [(blk.conv1, blk.bn1), (blk.conv2, blk.bn2), (blk.conv3, blk.bn3)]
+                if blk.downsample_conv is not None:
+                    pairs.append((blk.downsample_conv, blk.downsample_bn))
+
+        def fold_all():
+            for conv, bn in pairs:
+                weight, bias = fold_frozen(conv.weight, *bn.fold())
+                weight.to(conv.dtype or torch.float32), bias.float()
+
+        with torch.inference_mode():
+            dev_ms = [cuda_ms(fold_all, 20) for _ in range(EPILOGUE_REPS)]
+            host_ms = []
+            for _ in range(EPILOGUE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fold_all()
+                host_ms.append((time.perf_counter() - t0) / 20 * 1e3)
+                torch.cuda.synchronize()
+        n_weights = sum(conv.weight.numel() for conv, _ in pairs)
+        fold = {"convs": len(pairs), "weights": n_weights, "ms": float(np.median(dev_ms)),
+                "host_issue_ms": float(np.median(host_ms)), "turns": dev_ms,
+                "host_turns": host_ms}
+        print(f"epilogue (b): the fold of one detect ({len(pairs)} convs, {n_weights / 1e6:.2f}M "
+              f"weights) alone: {fold['ms']:.4f} ms back to back (CUDA events), "
+              f"{fold['host_issue_ms']:.4f} ms for the host to issue, a detect; 2 detects a "
+              f"score call, on {card}")
+    return {"holds": holds, "fold": fold}
+
+
 def nccl_check() -> int:
     """``chip_smoke.py --nccl``, outside the smoke run: phase 16's helpers
     on two ranks over NCCL, one card a rank (``rank % device_count``). With
@@ -3910,6 +4047,7 @@ def main() -> int:
     from cald_tpu_torch.augment.suite import generator_draw
     from cald_tpu_torch.native.nvjpeg import nvjpeg, resize_into_canvas
     from cald_tpu_torch.ops.bottleneck_cuda import fused_block_kernel, fused_stage_kernel
+    from cald_tpu_torch.ops.conv_epilogue import conv_epilogue_kernel
     from cald_tpu_torch.ops.roi_align_cuda import (
         roi_align_bwd_kernel, roi_align_group_fwd_kernel, roi_align_kernel,
         roi_align_train_fwd_kernel,
@@ -3933,21 +4071,25 @@ def main() -> int:
                    "bottleneck_block": fused_block_kernel, "bottleneck_stage": fused_stage_kernel}
     # one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         built = list(ex.map(lambda k: (k.load(), time.perf_counter() - t0),
-                              (roi_align_kernel, fused_block_kernel, resize_into_canvas)))
+                              (roi_align_kernel, fused_block_kernel, resize_into_canvas,
+                               conv_epilogue_kernel)))
     for k in all_kernels.values():
         k.load()
     nvjpeg.load()
+    # the scoring phases also count K8, the trunk's epilogue on the inference route
+    route_kernels = {**all_kernels, "conv_epilogue": conv_epilogue_kernel}
     print(f"build: roi_align kernels (K1, K2, K3, K4) ready in {built[0][1]:.2f} s, bottleneck "
           f"kernels (K5, K6) in {built[1][1]:.2f} s, nvJPEG + resize kernel (K7) in "
-          f"{built[2][1]:.2f} s")
+          f"{built[2][1]:.2f} s, the conv epilogue (K8) in {built[3][1]:.2f} s")
 
     kernel = kernel_phase(device)
 
     model = build_model(device)
     reference_check(model, device)
-    score_fn, pool, launches = main_path(model, device, all_kernels, {"roi_align": 2})
+    score_fn, pool, launches = main_path(model, device, route_kernels,
+                                         {"roi_align": 2, "conv_epilogue": 2 * K8_PER_DETECT})
     kernel["launches"] = launches["roi_align"]
 
     images = torch.from_numpy(pool[0].images).to(device)
@@ -3963,6 +4105,8 @@ def main() -> int:
     dt = time.perf_counter() - t0
     print(f"time: {reps} warm score calls of B={BATCH}: {dt / reps * 1e3:.1f} ms/call, "
           f"{reps * BATCH / dt:.2f} images/s on {card}")
+    epilogue = conv_epilogue_phase(device, card, model)
+    epilogue["launches"] = launches["conv_epilogue"]
     shrink = shrink_slice_phase(model, device, pool, all_kernels, dt / reps * 1e3, card)
     kernel["shrink_slice"] = shrink["kernel"]
     del model, score_fn
@@ -3977,7 +4121,7 @@ def main() -> int:
 
 
     bneck_kernels = bottleneck_kernel_phase(device, card)
-    fused = fused_path(device, all_kernels, card)
+    fused = fused_path(device, route_kernels, card)
     bneck_kernels[0]["launches"] = fused["1"]["launches"]
     bneck_kernels[1]["launches"] = fused["stage"]["launches"]
 
@@ -4100,8 +4244,15 @@ def main() -> int:
         "shape": {k: voc[k] for k in ("batch", "image_hw", "canvas", "out_hw")},
         "coco": jpeg["holds"]["coco"], "launches_al_loop": jpeg_al,
         "nvjpeg_against_pillow": jpeg["decode"], "loader_batch": jpeg["loader"]}
+    epilogue_kernel = {
+        "name": "conv_epilogue", "route": "cuda", "source": "cald_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None, "launches": epilogue["launches"],
+        "launches_per_score_call": epilogue["launches"] / N_BATCHES,
+        "launches_per_score_call_fused": {m: fused[m]["k8_launches_per_score_call"]
+                                          for m in ("1", "stage")},
+        "fold": epilogue["fold"], **epilogue["holds"]}
     print(json.dumps({"kernels": [kernel, train_kernels[0], train_kernels[1], group_kernel,
-                                  *bneck_kernels, resize_kernel]}))
+                                  *bneck_kernels, resize_kernel, epilogue_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
