@@ -21,6 +21,12 @@ length, are captured as the window runs them (``capture.py``), every image
 slot, and checked after it (``check_score.py``). The JPEG tree and the
 staged batches are the benchmark's own inputs: the time to make or find
 them is not ``setup_s``.
+
+A traced run hands its metric files (``metrics/<name>.py``) the trace, the
+window, the operations, K1's calls, and the shapes a new kernel's bytes
+and operations follow from: the configuration (``config``), the reference's
+detector configuration (``cfg``) and, for every completed batch, its
+``BatchShape`` (``batch_shapes``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +47,15 @@ class WindowClosed(Exception):
     pass
 
 
+class BatchShape(NamedTuple):
+    """What one completed score batch ran: its canvas (h, w), its image
+    slots, and its detects of each slot (the base and one an augmentation)."""
+
+    canvas: tuple
+    slots: int
+    detects: int
+
+
 def _port_model(config: dict, state_dict, device):
     kw = {k: (tuple(tuple(x) if isinstance(x, list) else x for x in v)
               if isinstance(v, list) else v)
@@ -47,9 +63,11 @@ def _port_model(config: dict, state_dict, device):
     if config["model"] == "faster":
         from cald_tpu_torch.models.faster_rcnn import FasterRCNN, FasterRCNNConfig
         model = FasterRCNN(FasterRCNNConfig(compute_dtype=config["compute_dtype"], **kw))
-    else:
+    elif config["model"] == "retina":
         from cald_tpu_torch.models.retinanet import RetinaNet, RetinaNetConfig
         model = RetinaNet(RetinaNetConfig(compute_dtype=config["compute_dtype"], **kw))
+    else:
+        raise ValueError(f"unknown model {config['model']!r}: one of faster, retina")
     model.load_state_dict(state_dict)
     return model.to(device).eval()
 
@@ -276,9 +294,12 @@ def run(cell: dict, config: dict, traffic: dict, seed: int, seconds: float, trac
         tr = (tracing.read(prof, st["spans"], t_mark) if prof is not None
               else tracing.Trace([], [], None))
         busy = tracing.busy_s(tr.device_ops)
+        shapes = [BatchShape(hw, slots, 1 + len(ccfg.aug_names))
+                  for hw, slots in zip(st["canvas"][:done], st["slots"][:done])]
         result["traced"] = {
             "trace": tr, "window_s": window_s, "batches": done, "images": images_done,
-            "flops": _score_flops(ref.cfg, st, done, len(ccfg.aug_names)), "busy_s": busy,
+            "flops": _score_flops(ref.cfg, shapes), "busy_s": busy,
+            "config": config, "cfg": ref.cfg, "batch_shapes": shapes,
             "k1_calls": k1_calls,
             "loader_wait_s": [b - a for a, b, n in st["spans"] if n == "loader_wait"],
         }
@@ -341,15 +362,15 @@ def checked_slot(rng, n: int, k: int) -> int:
     return n if n < k else int(rng.integers(0, n + 1))
 
 
-def _score_flops(cfg, st, done: int, n_augs: int) -> float:
-    """Operations of the completed batches: a base detect and one detect a
-    augmentation of every image slot, on the batch's canvas."""
+def _score_flops(cfg, shapes: list[BatchShape]) -> float:
+    """Operations of the completed batches: every detect of every image
+    slot (a base detect and one an augmentation), on the batch's canvas."""
     from harness.counting import detect_flops
 
     per_canvas: dict = {}
     total = 0.0
-    for hw, slots in zip(st["canvas"][:done], st["slots"][:done]):
+    for hw, slots, detects in shapes:
         if hw not in per_canvas:
             per_canvas[hw] = detect_flops(cfg, *hw)
-        total += per_canvas[hw] * slots * (1 + n_augs)
+        total += per_canvas[hw] * slots * detects
     return total

@@ -51,14 +51,23 @@ from plainref.models.rpn import select_proposals
 from plainref.ops.consistency import cald_consistency, class_correlation
 from plainref.ops.roi_align import multi_scale_roi_align
 
+# the detectors a configuration's ``model`` names
+MODELS = {"faster": (FasterRCNN, FasterRCNNConfig), "retina": (RetinaNet, RetinaNetConfig)}
 NUMBERS = ("canvas_gap", "pyramid_rel", "head_rel", "det_mismatch", "aug_gap", "score_gap")
 # ITU-R 601 luma weights
 LUMA = (0.299, 0.587, 0.114)
 
 
+def _model(config: dict):
+    """(detector, its configuration class) of a configuration's ``model``."""
+    if config["model"] not in MODELS:
+        raise ValueError(f"unknown model {config['model']!r}: one of {', '.join(MODELS)}")
+    return MODELS[config["model"]]
+
+
 def model_config(config: dict, compute_dtype: str):
     """The detector configuration of a configuration file, in a dtype."""
-    fields = FasterRCNNConfig if config["model"] == "faster" else RetinaNetConfig
+    fields = _model(config)[1]
     kw = {k: (tuple(tuple(x) if isinstance(x, list) else x for x in v)
               if isinstance(v, list) else v)
           for k, v in config["detector"].items()}
@@ -68,7 +77,7 @@ def model_config(config: dict, compute_dtype: str):
 def reference_model(config: dict, device, state_dict=None):
     """The plain float32 detector of a configuration, on ``device``."""
     cfg = model_config(config, "float32")
-    model = (FasterRCNN if config["model"] == "faster" else RetinaNet)(cfg)
+    model = _model(config)[0](cfg)
     model.to(device).eval()
     if state_dict is not None:
         model.load_state_dict(state_dict)

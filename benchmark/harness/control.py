@@ -3,7 +3,9 @@ each part computed in the precision just below the one the configuration
 states for it, at the cell's own sizes (one score batch).
 
 - convolutions and matrix products (bf16 in the configuration): fp8
-  (e4m3, one scale a tensor, as an fp8 inference path would quantise);
+  (e4m3, one scale a tensor, as an fp8 inference path would quantise):
+  every module with a ``quant`` hook (``Conv``, ``Dense``, and ``Product``
+  for the products between activations, such as attention's);
 - the augmented images (bf16): fp8;
 - box decoding, proposals, NMS, scores and consistency (float32): bf16,
   the inputs and outputs of each such stage rounded;
@@ -24,7 +26,6 @@ from harness.capture import Capture, SampledBatch
 from plainref.augment.suite import expand_aug_string, generator_draw
 from plainref.cald import CALDConfig, make_cald_score_fn
 from plainref.canvas import batch_canvas, image_size
-from plainref.models.layers import Conv, Dense
 
 
 def fp8(t: torch.Tensor) -> torch.Tensor:
@@ -52,7 +53,7 @@ def control_model(ref):
     """A copy of the reference detector that computes as the control does."""
     ctl = copy.deepcopy(ref)
     for m in ctl.modules():
-        if isinstance(m, (Conv, Dense)):
+        if hasattr(m, "quant"):
             m.quant = fp8
     ctl.lowp = bf16
     return ctl

@@ -5,13 +5,24 @@ shapes, and K1's bytes and operations (copied from ``chip_smoke.py``'s
 ``detect_flops`` counts the convolutions and matrix products a detect needs
 at a canvas shape (2 operations a multiply-add): backbone, FPN, RPN head
 and box head (Faster R-CNN, at every proposal slot) or RetinaNet's subnets.
-NMS, RoIAlign, normalisation and elementwise work are left out. The count
-is a function of the configuration and the shape alone, whatever
+A product between activations (a bmm, attention's QK^T and AV) counts 2
+operations a multiply-add too, as ``FlopCounterMode`` counts it. NMS,
+RoIAlign, normalisation, softmax and elementwise work are left out. The
+count is a function of the configuration and the shape alone, whatever
 implements the layers; ``benchmark/tests`` holds it to
 ``torch.utils.flop_counter.FlopCounterMode`` on the plain reference.
+
+The backbone's count is ``backbone_flops`` for ResNet (``resnet50``,
+``tiny``); a backbone of any other name brings ``counts/<name>.py``, whose
+``backbone_flops(cfg, h, w)`` gives (operations, [(channels, h, w) of each
+map the backbone returns, finest first]) from the detector configuration
+``cfg`` (its ``backbone_args``) and the canvas.
 """
 
 from __future__ import annotations
+
+import importlib
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s, bf16
 # tensor-core and float32 (outside the tensor cores) operations/s
@@ -20,6 +31,9 @@ BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
 
 RESNET50 = ((3, 4, 6, 3), 64)
+# ResNets by the configuration's name: (blocks per stage, width)
+RESNETS = {"resnet50": RESNET50, "tiny": ((1, 1, 1, 1), 16)}
+COUNTS = Path(__file__).resolve().parent / "counts"
 
 
 def _conv(cin: int, cout: int, k: int, h: int, w: int, stride: int = 1, pad: int = 0):
@@ -65,6 +79,17 @@ def fpn_flops(maps, channels: int, extra: str):
     return total, levels
 
 
+def backbone_counts(cfg, h: int, w: int):
+    """(operations, [(channels, h, w) of each map]) of the backbone that
+    ``cfg.backbone`` names, on one image of an (h, w) canvas."""
+    if cfg.backbone in RESNETS:
+        return backbone_flops(h, w, *RESNETS[cfg.backbone])
+    path = COUNTS / f"{cfg.backbone}.py"
+    if not cfg.backbone.isidentifier() or not path.is_file():
+        raise ValueError(f"no operation count for backbone {cfg.backbone!r}: no file {path}")
+    return importlib.import_module(f"harness.counts.{cfg.backbone}").backbone_flops(cfg, h, w)
+
+
 def detect_flops(cfg, h: int, w: int) -> int:
     """Operations of one detect of one image on an (h, w) canvas, for a
     detector configuration ``cfg`` (the reference's ``FasterRCNNConfig`` or
@@ -72,7 +97,7 @@ def detect_flops(cfg, h: int, w: int) -> int:
     c = cfg.fpn_channels
     classes = cfg.num_classes
     anchors = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
-    total, maps = backbone_flops(h, w)
+    total, maps = backbone_counts(cfg, h, w)
     if hasattr(cfg, "rpn_post_nms_top_n_test"):
         f, levels = fpn_flops(maps, c, "pool")
         total += f

@@ -4,7 +4,12 @@ The scheme is a copy of ``cald_tpu_torch/models/init.py``'s families
 (truncated kaiming fan-out convolutions, ``normal(0.01)`` detection heads,
 truncated lecun-normal Dense layers, zero biases, RetinaNet's focal prior on
 ``cls_logits``), drawn from one uniform draw of a ``torch.Generator`` on the
-device and shaped per leaf by the inverse normal CDF. Then the configuration's
+device and shaped per leaf by the inverse normal CDF. A module of the
+reference may list further leaves (``seeded_leaves()``, as (tensor, family,
+std): a relative position bias table, say), drawn from the same draw after
+every Conv and Dense weight; a parameter that neither is covered nor is a
+norm's affine pair, which its constructor sets to ones and zeros, stops the
+seeding with an error. Then the configuration's
 head gains (``chip_smoke.py``'s ``HEAD_GAINS``, so that a random detector's
 scores and boxes spread out as a detector's do) and the frozen norms
 calibrated on one batch of the cell's own images, by the plain reference, so
@@ -17,13 +22,16 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
-from plainref.models.layers import Conv, Dense, FrozenBatchNorm
+from plainref.models.layers import Conv, Dense, FrozenBatchNorm, GroupNorm
 
 # Flax's truncated normal rescales its std by the std of a unit normal cut at +-2
 _TRUNC_STD = 0.87962566103423978
 _HEAD_NORMAL = ("rpn_head.", "head.")
 _LECUN_CONVS = ("fc1", "fc2", "reduce")
+# norms whose constructors set their affine parameters to ones and zeros
+_NORMS = (GroupNorm, nn.GroupNorm, nn.LayerNorm)
 
 
 def _phi(x: float) -> float:
@@ -31,7 +39,8 @@ def _phi(x: float) -> float:
 
 
 def _leaves(model) -> list[tuple[torch.Tensor, str, float]]:
-    """(weight, family, std) of every Conv and Dense, in module order."""
+    """(weight, family, std) of every Conv and Dense, in module order, then
+    every module's ``seeded_leaves()``, in module order."""
     out = []
     for name, m in model.named_modules():
         if isinstance(m, Conv):
@@ -47,15 +56,36 @@ def _leaves(model) -> list[tuple[torch.Tensor, str, float]]:
                 out.append((m.weight, "normal", 0.01))
             else:
                 out.append((m.weight, "trunc", math.sqrt(1.0 / m.weight.shape[1])))
+    for m in model.modules():
+        if hasattr(m, "seeded_leaves"):
+            out += list(m.seeded_leaves())
     return out
+
+
+def _unseeded(model, leaves) -> list[str]:
+    """The parameters that neither ``random_init_`` sets (the leaves, Conv
+    and Dense biases) nor a norm's constructor sets to a constant."""
+    covered = {id(w) for w, _, _ in leaves}
+    for m in model.modules():
+        if isinstance(m, (Conv, Dense)) and m.bias is not None:
+            covered.add(id(m.bias))
+        elif isinstance(m, _NORMS):
+            covered |= {id(p) for p in m.parameters(recurse=False)}
+    return [name for name, p in model.named_parameters() if id(p) not in covered]
 
 
 @torch.no_grad()
 def random_init_(model, seed: int, prior_probability: float | None = None) -> None:
-    """Every Conv and Dense weight of the reference ``model`` (already on its
-    device) from one uniform draw of a generator seeded with ``seed``; zero
-    biases, and the focal prior on ``head.cls_logits`` where given."""
+    """Every Conv and Dense weight and every listed leaf of the reference
+    ``model`` (already on its device) from one uniform draw of a generator
+    seeded with ``seed``; zero biases, and the focal prior on
+    ``head.cls_logits`` where given. Raises where a parameter is left as its
+    constructor made it and is no norm's."""
     leaves = _leaves(model)
+    stray = _unseeded(model, leaves)
+    if stray:
+        raise ValueError(f"no seeded family covers {', '.join(stray)}: list them in their "
+                         f"module's seeded_leaves()")
     dev = leaves[0][0].device
     g = torch.Generator(device=dev).manual_seed(seed % 2 ** 63)
     total = sum(w.numel() for w, _, _ in leaves)
@@ -113,13 +143,11 @@ def calibrate_norms_(model, images, valid_hw, min_var_share: float) -> None:
             h.remove()
 
 
-def seeded_reference(config: dict, paths, seed: int, device):
-    """The plain reference detector of ``config`` with the seed's weights:
-    the init scheme, every bottleneck's last norm scaled, the head gains, and
-    the frozen norms calibrated on the canvas of ``paths`` (images of one
-    canvas)."""
+def seeded_weights(config: dict, seed: int, device):
+    """The plain reference detector of ``config`` with the seed's weights
+    before calibration: the init scheme, the head gains, and every
+    bottleneck's last norm scaled."""
     from harness.check_score import reference_model
-    from plainref.canvas import batch_canvas
 
     ref = reference_model(config, device)
     w = config["weights"]
@@ -129,6 +157,17 @@ def seeded_reference(config: dict, paths, seed: int, device):
         for name, m in ref.named_modules():
             if name.endswith(".bn3"):
                 m.scale.fill_(w["residual_norm_scale"])
+    return ref
+
+
+def seeded_reference(config: dict, paths, seed: int, device):
+    """The plain reference detector of ``config`` with the seed's weights
+    (``seeded_weights``) and its frozen norms calibrated on the canvas of
+    ``paths`` (images of one canvas)."""
+    from plainref.canvas import batch_canvas
+
+    ref = seeded_weights(config, seed, device)
+    w = config["weights"]
     images, hw = batch_canvas(paths, list(range(len(paths))), config["min_size"],
                               config["max_size"], device)
     calibrate_norms_(ref, images, hw, w["min_var_share"])

@@ -5,6 +5,9 @@ kernel route was taken out (RoIAlign is ``ops/roi_align.py``'s plain
 version, the backbone has no fused bottlenecks), and MobileNet is left out.
 
 ``layers.Conv`` and ``layers.Dense`` take an optional ``quant`` (a function
-applied to the input and the weight before the call), with which the
-correctness control computes the same model in a lower precision.
+applied to the input and the weight before the call), and ``layers.Product``
+(every other matrix product, such as attention's) one applied to both
+operands, with which the correctness control computes the same model in a
+lower precision. A backbone other than ResNet is a file of its own,
+``models/backbones/<name>.py``, found by the configuration's name.
 """

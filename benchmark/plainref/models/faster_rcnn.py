@@ -8,7 +8,8 @@ handed to RoIAlign is NHWC. RoIAlign is ``ops/roi_align.py``'s plain
 version, differentiable by autograd.
 
 Backbones: ResNet-50 (``resnet50``, FPN on C2..C5, RoIAlign on P2..P5) and
-its ``tiny`` miniature.
+its ``tiny`` miniature; any other name is ``models/backbones/<name>.py``,
+built with the configuration's ``backbone_args``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from plainref.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from plainref.models import backbones
 from plainref.models.anchors import ASPECT_RATIOS, FRCNN_SIZES, generate_anchors
 from plainref.models.detections import Detections
 from plainref.models.fpn import FPN
@@ -43,7 +45,9 @@ class FasterRCNNConfig:
     defaults)."""
 
     num_classes: int = 21
-    backbone: str = "resnet50"          # resnet50 | tiny
+    backbone: str = "resnet50"          # resnet50 | tiny | models/backbones/<name>.py
+    # the keywords of a backbone of models/backbones/ (its published widths)
+    backbone_args: dict = dataclasses.field(default_factory=dict, hash=False)
     norm: str = "frozen"                # the backbone's norms: frozen | group
     # conv/matmul compute dtype; box decoding, NMS and scores stay float32
     compute_dtype: str = "bfloat16"
@@ -109,7 +113,8 @@ class FasterRCNN(nn.Module):
             blocks, width = BACKBONES[cfg.backbone]
             self.backbone = ResNetBackbone(blocks, width, dtype=dt, norm=cfg.norm)
         else:
-            raise ValueError(f"unknown backbone {cfg.backbone!r}")
+            self.backbone = backbones.build(cfg.backbone, cfg.backbone_args, dt, cfg.norm)
+            self.feat_keys = tuple(self.backbone.out_keys)
         self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, dtype=dt)
         a_per_cell = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
         self.rpn_head = RPNHead(a_per_cell, cfg.fpn_channels, dtype=dt)

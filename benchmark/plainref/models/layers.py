@@ -60,6 +60,25 @@ class Dense(nn.Module):
         return F.linear(x, w, self.bias.to(dt))
 
 
+class Product(nn.Module):
+    """A matrix product of two activations (``torch.matmul``), such as
+    attention's QK^T and AV, computed in an optional ``dtype`` as ``Conv``
+    and ``Dense`` compute theirs. It holds no weight; its ``quant`` rounds
+    both operands, as theirs does."""
+
+    def __init__(self, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.quant = None
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or a.dtype
+        a, b = a.to(dt), b.to(dt)
+        if self.quant is not None:
+            a, b = self.quant(a), self.quant(b)
+        return torch.matmul(a, b)
+
+
 class FrozenBatchNorm(nn.Module):
     """torchvision ``FrozenBatchNorm2d`` on NCHW tensors:
     ``y = (x - mean) * scale / sqrt(var + eps) + bias`` with every statistic a

@@ -2,7 +2,8 @@
 retinanet_cal).
 
   - ResNet-50-FPN on C3..C5 with LastLevelP6P7 (P3..P7), or the ``tiny``
-    miniature;
+    miniature, or a backbone of ``models/backbones/`` on all its maps but
+    the finest;
   - 4-conv classification and regression subnets shared across levels, the
     classification bias at the focal prior -log((1-pi)/pi), pi = 0.01
     (``models/init.py``);
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from plainref.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from plainref.models import backbones
 from plainref.models.anchors import (
     ASPECT_RATIOS, RETINA_SIZES, generate_anchors,
 )
@@ -50,7 +52,8 @@ from plainref.ops.nms import batched_nms
 @dataclasses.dataclass(frozen=True)
 class RetinaNetConfig:
     num_classes: int = 21               # the channel space includes background 0
-    backbone: str = "resnet50"          # resnet50 | tiny
+    backbone: str = "resnet50"          # resnet50 | tiny | models/backbones/<name>.py
+    backbone_args: dict = dataclasses.field(default_factory=dict, hash=False)
     norm: str = "frozen"
     compute_dtype: str = "bfloat16"
     fpn_channels: int = 256
@@ -196,10 +199,11 @@ class RetinaNet(nn.Module):
             self.feat_keys = ("c3", "c4", "c5")
             blocks, width = BACKBONES[cfg.backbone]
             self.backbone = ResNetBackbone(blocks, width, dtype=dt, norm=cfg.norm)
-            self.fpn = FPN(self.backbone.out_channels[1:], cfg.fpn_channels, dtype=dt,
-                           extra="p6p7")
         else:
-            raise ValueError(f"unknown backbone {cfg.backbone!r}")
+            self.backbone = backbones.build(cfg.backbone, cfg.backbone_args, dt, cfg.norm)
+            self.feat_keys = tuple(self.backbone.out_keys[1:])
+        self.fpn = FPN(self.backbone.out_channels[1:], cfg.fpn_channels, dtype=dt,
+                       extra="p6p7")
         a_per_cell = len(cfg.anchor_sizes[0]) * len(cfg.aspect_ratios)
         self.head = RetinaNetHead(cfg.num_classes, a_per_cell, cfg.fpn_channels, dtype=dt)
         self._anchor_cache: dict = {}

@@ -1,4 +1,5 @@
-"""The correctness control (``harness/control.py``) fails the limits.
+"""The correctness control (``harness/control.py``) fails the limits, for
+every configuration of ``BENCHMARK.json``.
 
 On the CPU at the tiny size of ``tiny.py``; on a card (marked ``cuda``) at
 the cells' own sizes on three seeds, printing each seed's readings (run
@@ -15,11 +16,14 @@ from pathlib import Path
 import pytest
 
 BENCH = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(BENCH), str(BENCH.parent), str(BENCH / "tests")]
+ROOT = BENCH.parent
+sys.path[:0] = [str(BENCH), str(ROOT), str(BENCH / "tests")]
 
 import tiny  # noqa: E402
 
-CONFIGS = ("faster_r50fpn_voc", "retina_r50fpn_voc")
+# every configuration of the benchmark, by name: its file
+CONFIGS = {c["name"]: c["file"]
+           for c in json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]}
 SEEDS = (4100000001, 4100000002, 4100000003)
 
 
@@ -29,7 +33,11 @@ def _readings(config, traffic_name, traffic, seed, device, **kw):
     return control.readings(config, traffic_name, traffic, seed, device, **kw)
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+def _config(name: str) -> dict:
+    return json.loads((ROOT / CONFIGS[name]).read_text())
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_control_fails_on_cpu(name, tmp_path):
     import torch
 
@@ -42,7 +50,7 @@ def test_control_fails_on_cpu(name, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_control_fails_on_card(name):
     import torch
 
@@ -50,8 +58,7 @@ def test_control_fails_on_card(name):
         pytest.skip("needs a CUDA card")
     from harness.check_score import judge
 
-    with open(BENCH / "configs" / f"{name}.json") as f:
-        config = json.load(f)
+    config = _config(name)
     with open(BENCH / "traffic" / "voc07_pool1024.json") as f:
         traffic = json.load(f)
     for seed in SEEDS:
@@ -65,8 +72,7 @@ if __name__ == "__main__":
     import torch
 
     name, traffic_name, *seeds = sys.argv[1:]
-    with open(BENCH / "configs" / f"{name}.json") as f:
-        config = json.load(f)
+    config = _config(name)
     with open(BENCH / "traffic" / f"{traffic_name}.json") as f:
         traffic = json.load(f)
     for s in seeds:
